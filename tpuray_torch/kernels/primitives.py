@@ -1,0 +1,184 @@
+"""Geometry, sampling and texel-index primitives on tensors.
+
+Port of the parts of :mod:`tpuray.kernels.primitives` and of the megakernel's
+helpers (``tpuray/kernels/pallas_trace.py``) that the plain version of the
+megakernel needs.  Vectors are ``[..., 3]`` float32 tensors; every formula
+keeps the megakernel's operation order (``b = 2*dot(v, d)`` in the sphere
+test, ROADMAP C3), because grazing hits flip with the rounding.  The CUDA
+kernel (``csrc/megakernel.cu``) implements the same formulas per thread.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+INV_PI = float(np.float32(1.0 / np.pi))    # INVERSE_SQUARE_LIGHT, primitives.cl:6
+TWO_PI = float(np.float32(2.0 * np.pi))
+PI = float(np.float32(np.pi))
+_U32 = 0xFFFFFFFF
+
+
+def dot3(a, b):
+    """ax*bx + ay*by + az*bz, in that order."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def normalize3(v):
+    """v * rsqrt(|v|^2), zero for a zero vector (pallas_trace.py:492)."""
+    n2 = dot3(v, v)
+    inv = torch.rsqrt(torch.where(n2 > 0, n2, torch.ones_like(n2)))
+    inv = torch.where(n2 > 0, inv, torch.zeros_like(inv))
+    return v * inv[..., None]
+
+
+def trunc_i32(x):
+    """float -> int32 conversion as XLA and CUDA's ``__float2int_rz`` do it:
+    truncate toward zero, saturate at the int32 range, NaN -> 0.  Returned
+    as int64 so that the floor-mods that follow cannot overflow."""
+    x = torch.where(torch.isnan(x), torch.zeros_like(x), x)
+    return x.double().clamp(-2147483648.0, 2147483647.0).to(torch.int64)
+
+
+def xorshift32(state):
+    """One xorshift32 step (primitives.cl:116-125) per lane.
+
+    ``state`` holds u32 values in an int64 tensor; shifts are masked to 32
+    bits, so the right shift is logical.  The sample follows the megakernel
+    (pallas_trace.py:499): the state's int32 bit pattern converted to f32,
+    plus 2^32 where negative, then ``/ 2^31 * 2``, which maps the u32 range
+    onto [0, 4) as the reference does.  Returns (new_state, sample f32).
+    """
+    x = state
+    x = x ^ ((x << 13) & _U32)
+    x = x ^ (x >> 17)
+    x = x ^ ((x << 5) & _U32)
+    signed = torch.where(x >= 2 ** 31, x - 2 ** 32, x)
+    fx = signed.to(torch.float32)
+    fx = torch.where(fx < 0, fx + 4294967296.0, fx)
+    return x, fx / 2147483648.0 * 2.0
+
+
+def map_to_cube(d, face: int):
+    """Direction -> integer texel (u, v) in the 4x3 horizontal-cross cubemap
+    (primitives.cl:14-109).  The six blocks are not exclusive and are
+    applied in source order, so a later block wins a tie."""
+    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+    ax, ay, az = x.abs(), y.abs(), z.abs()
+    m = torch.ones_like(x)
+    uc = torch.zeros_like(x)
+    vc = torch.zeros_like(x)
+    su = torch.zeros_like(x, dtype=torch.int64)
+    sv = torch.zeros_like(x, dtype=torch.int64)
+    xp, yp, zp = x > 0, y > 0, z > 0
+    for cond, mm, u, v, s_u, s_v in (
+            (xp & (ax >= ay) & (ax >= az), ax, -z, y, 2 * face, face),
+            (~xp & (ax >= ay) & (ax >= az), ax, z, y, 0, face),
+            (yp & (ay >= ax) & (ay >= az), ay, x, -z, face, 2 * face),
+            (~yp & (ay >= ax) & (ay >= az), ay, x, z, face, 0),
+            (zp & (az >= ax) & (az >= ay), az, x, y, face, face),
+            (~zp & (az >= ax) & (az >= ay), az, -x, y, 3 * face, face)):
+        m = torch.where(cond, mm, m)
+        uc = torch.where(cond, u, uc)
+        vc = torch.where(cond, v, vc)
+        su = torch.where(cond, s_u, su)
+        sv = torch.where(cond, s_v, sv)
+    safe = torch.where(m != 0, m, torch.ones_like(m))
+    fu = 0.5 * (uc / safe + 1.0)
+    fv = 0.5 * (vc / safe + 1.0)
+    return su + trunc_i32(fu * float(face)), sv + trunc_i32(fv * float(face))
+
+
+def sky_texel(d, sky_h: int, sky_w: int):
+    """Skybox texel (row, col) for direction ``d``: ``map_to_cube`` with the
+    v flip and clamps of raytracing.cl:61-78 (pallas_trace.py:1826-1829)."""
+    u, v = map_to_cube(d, sky_w // 4)
+    return (sky_h - v).clamp(0, sky_h - 1), u.clamp(0, sky_w - 1)
+
+
+def plane_texture_basis(normal):
+    """Per-plane tangent basis (primitives.cl:219-235, pallas_trace.py:587):
+    b0 is the first of cross(e_i, n), i = 0, 1, 2, with a nonzero component
+    sum; b1 = cross(n, b0).  normal [..., 3] -> (b0, b1)."""
+    nx, ny, nz = normal[..., 0], normal[..., 1], normal[..., 2]
+    c0 = torch.stack([0.0 * nx, -nz, ny], -1)
+    c1 = torch.stack([nz, 0.0 * nx, -nx], -1)
+    c2 = torch.stack([-ny, nx, 0.0 * nx], -1)
+    s0 = (c0[..., 0] + c0[..., 1] + c0[..., 2] != 0)[..., None]
+    s1 = (c1[..., 0] + c1[..., 1] + c1[..., 2] != 0)[..., None]
+    b0 = torch.where(s0, c0, torch.where(s1, c1, c2))
+    b1 = torch.stack([ny * b0[..., 2] - nz * b0[..., 1],
+                      nz * b0[..., 0] - nx * b0[..., 2],
+                      nx * b0[..., 1] - ny * b0[..., 0]], -1)
+    return b0, b1
+
+
+def texture_texel_coords(b0, b1, point, scale, tex_h: int, tex_w: int):
+    """Plane-texture texel (col, row) of a hit point (primitives.cl:237-256):
+    non-finite coordinates become 0, the int cast truncates toward zero,
+    and the wrap is a floor-mod, so negative coordinates tile correctly."""
+    ui = dot3(b0, point) * scale
+    vi = dot3(b1, point) * scale
+    ui = torch.where(torch.isfinite(ui), ui, torch.zeros_like(ui))
+    vi = torch.where(torch.isfinite(vi), vi, torch.zeros_like(vi))
+    return (torch.remainder(trunc_i32(ui), tex_w),
+            torch.remainder(trunc_i32(vi), tex_h))
+
+
+def intersect_sphere(o, d, center, radius):
+    """Quadratic sphere test with the far-root rule (primitives.cl:170-195):
+    if the near root is behind the origin the far root is used, which is
+    what lets refracted rays leave a sphere.  Returns (hit, t)."""
+    v = o - center
+    a = dot3(d, d)
+    b = 2.0 * dot3(v, d)
+    c = dot3(v, v) - radius * radius
+    disc = b * b - 4.0 * a * c
+    has = disc >= 0
+    sq = torch.sqrt(torch.where(has, disc, torch.zeros_like(disc)))
+    t_near = (-b - sq) / (2.0 * a)
+    t_far = (-b + sq) / (2.0 * a)
+    t = torch.where(t_near < 0, t_far, t_near)
+    return has & (t > 0), t
+
+
+def intersect_plane(o, d, normal, point):
+    """Infinite-plane test (primitives.cl:197-215), exact b == 0 reject."""
+    b = dot3(d, normal)
+    safe_b = torch.where(b == 0, torch.ones_like(b), b)
+    t = dot3(point - o, normal) / safe_b
+    return (b != 0) & (t > 0), t
+
+
+def reflect(incident, normal):
+    """primitives.cl:127-130."""
+    cos_i = -dot3(normal, incident)
+    return incident + (2.0 * cos_i)[..., None] * normal
+
+
+def refract(n1, n2, incident, normal):
+    """primitives.cl:132-144 with the NaN TIR signal replaced by a mask.
+    Returns (direction, tir)."""
+    n = n1 / n2
+    cos_i = -dot3(normal, incident)
+    sin_t2 = n * n * (1.0 - cos_i * cos_i)
+    tir = sin_t2 > 1.0
+    cos_t = torch.sqrt((1.0 - sin_t2).clamp(min=0.0))
+    out = n[..., None] * incident + (n * cos_i - cos_t)[..., None] * normal
+    return out, tir
+
+
+def schlick(n1, n2, incident, normal):
+    """Schlick Fresnel (primitives.cl:146-160), with the n1 > n2
+    transmission-angle substitution and the TIR -> 1 early out."""
+    r0 = (n1 - n2) / (n1 + n2)
+    r0 = r0 * r0
+    cos_x = -dot3(normal, incident)
+    n = n1 / n2
+    sin_t2 = n * n * (1.0 - cos_x * cos_x)
+    tir = sin_t2 > 1.0
+    cos_trans = torch.sqrt((1.0 - sin_t2).clamp(min=0.0))
+    use_trans = n1 > n2
+    cos_x = torch.where(use_trans, cos_trans, cos_x)
+    x = 1.0 - cos_x
+    fr = r0 + (1.0 - r0) * x * x * x * x * x
+    return torch.where(use_trans & tir, torch.ones_like(fr), fr)
