@@ -1,8 +1,9 @@
-"""The CUDA megakernel on the card: built with nvcc from the repository's
-sources, held against its plain PyTorch version, and its wrapper's
-refusals.  Every test needs an NVIDIA GPU and the CUDA toolkit and skips
-without them (marker ``cuda``); on the card run
-``python -m pytest tests/test_torch_cuda.py -q``."""
+"""The CUDA megakernel on the card, in its base and record instantiations:
+built with nvcc from the repository's sources, held against the plain
+PyTorch versions, the gradient through ``render_megakernel_diff`` against
+the same on the CPU, and the wrappers' refusals.  Every test needs an
+NVIDIA GPU and the CUDA toolkit and skips without them (marker ``cuda``);
+on the card run ``python -m pytest tests/test_torch_cuda.py -q``."""
 import shutil
 
 import numpy as np
@@ -11,9 +12,9 @@ import torch
 
 import tpuray_torch as tt
 from tpuray_torch.kernels import build
-from tpuray_torch.kernels.megakernel import (MAX_DEPTH_CAP, pack_scene,
-                                             render_megakernel,
-                                             render_megakernel_reference)
+from tpuray_torch.kernels.megakernel import (
+    MAX_DEPTH_CAP, pack_scene, render_megakernel, render_megakernel_record,
+    render_megakernel_record_reference, render_megakernel_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -76,3 +77,98 @@ def test_wrapper_refuses_mixed_devices_and_deep_stacks(cuda):
     out = render_megakernel(packed, assets, cfg.replace(max_depth=16))
     torch.cuda.synchronize()
     assert np.isfinite(out.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("shape", [(256, 64, 3, 2), (200, 50, 6, 2),
+                                   (128, 96, 3, 0)])
+def test_record_kernel_matches_plain_version(cuda, shape):
+    width, height, depth, samples = shape
+    packed, assets, cfg = _inputs(cuda, width, height, depth)
+    cfg = cfg.replace(shadow_samples=samples)
+    before = render_megakernel_record.launches
+    img, rec = render_megakernel_record(packed, assets, cfg)
+    torch.cuda.synchronize()
+    assert render_megakernel_record.launches == before + 1
+    want, plain = render_megakernel_record_reference(packed, assets, cfg)
+    # the record instantiation renders the base kernel's image
+    assert torch.equal(img, render_megakernel(packed, assets, cfg))
+    assert float((img - want).abs().max()) < 1e-3
+    for key in ("rec", "pick"):
+        same = (rec[key] == plain[key]).all(0).float().mean()
+        assert float(same) >= 0.999, key
+    assert float((rec["ssr"] - plain["ssr"]).abs().max()) <= 1e-5
+    assert int(rec["max_nodes"]) == int(plain["max_nodes"])
+
+
+def test_diff_backward_on_the_card_matches_the_cpu(cuda):
+    """atol 2e-2 * max|g| per leaf (tests/test_pallas_vjp.py:297-303): the
+    card's reductions (the one-hot reads' backward sums over pixels) add
+    in another order than the CPU's."""
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        packed, assets, cfg = _inputs(dev, 64, 48, 3)
+        scene = tt.build_scene(tt.canonical_scene_spec(), dev)
+        basis = tt.perspective_basis(tt.Camera(*GOLDEN_CAMERA), 64, 48,
+                                     device=dev)
+        diff, rest = tt.partition(scene)
+        leaves = {k: v.clone().requires_grad_() for k, v in diff.items()}
+        w = torch.from_numpy(np.random.default_rng(0).uniform(
+            size=(48, 64, 3)).astype(np.float32)).to(dev)
+        img = tt.render_megakernel_diff(tt.combine(leaves, rest), assets,
+                                        basis, cfg)
+        g = torch.autograd.grad((img * w).sum(), list(leaves.values()))
+        grads[dev.type] = {k: v.cpu() for k, v in zip(leaves, g)}
+    for name, ours in grads["cuda"].items():
+        want = grads["cpu"][name]
+        assert torch.isfinite(ours).all(), name
+        if want.numel():
+            scale = max(float(want.abs().max()), 1e-3)
+            assert float((ours - want).abs().max()) <= 2e-2 * scale, name
+
+
+def test_record_wrapper_refusals_on_the_card(cuda):
+    check_record_refusals(cuda)
+
+
+def crowded_spec(n_spheres=0, n_lights=0):
+    spec = tt.canonical_scene_spec()
+    spec.spheres += [tt.SphereSpec((0.1 * i, 5.0, 9.0), 0.05, tt.PLASTIC)
+                     for i in range(n_spheres)]
+    spec.lights += [tt.LightSpec((0.1 * i, 9.0, 9.0), 0.05, 1.0, (1, 1, 1))
+                    for i in range(n_lights)]
+    return spec
+
+
+def check_record_refusals(device):
+    """More than 64 solids or 62 lights (the hit code's ranges), record
+    slots outside [1, 64] (6-bit parent slots), triangles and bilinear
+    filtering (not ported yet) are refused; the caps themselves work."""
+    basis = tt.perspective_basis(tt.Camera(*GOLDEN_CAMERA), 8, 4,
+                                 device=device)
+    assets = tt.assets_from_arrays(*tt.random_asset_arrays(0), device)
+    cfg = tt.RenderConfig(width=8, height=4, max_depth=2)
+    for spec, what in ((crowded_spec(n_spheres=59), "64 solids"),
+                       (crowded_spec(n_lights=60), "62 lights")):
+        packed = pack_scene(tt.build_scene(spec, device), basis)
+        with pytest.raises(ValueError, match=what):
+            render_megakernel_record(packed, assets, cfg)
+    packed = pack_scene(tt.build_scene(crowded_spec(58, 59), device), basis)
+    _, records = render_megakernel_record(packed, assets, cfg)   # at the caps
+    assert records["ssr"].shape[1] == 62
+    packed = pack_scene(tt.build_scene(tt.canonical_scene_spec(), device),
+                        basis)
+    for slots in (-1, 65):
+        with pytest.raises(ValueError, match="record_slots"):
+            render_megakernel_record(packed, assets,
+                                     cfg.replace(record_slots=slots))
+    for slots in (1, 64):
+        _, records = render_megakernel_record(
+            packed, assets, cfg.replace(record_slots=slots))
+        assert records["rec"].shape == (slots, 32)
+    spec = tt.canonical_scene_spec()
+    spec.triangles.append(tt.TriangleSpec((0, 0, 0), (1, 0, 0), (0, 1, 0),
+                                          tt.PLASTIC))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pack_scene(tt.build_scene(spec, device), basis)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tt.RenderConfig(filter="bilinear", record_slots=8)

@@ -132,8 +132,10 @@ def test_golden_slab(row0):
 
 def test_port_imports_neither_jax_nor_tpuray():
     code = ("import sys, tpuray_torch, tpuray_torch.apps.raypng, "
-            "tpuray_torch.apps.scenegen, tpuray_torch.kernels.build, "
-            "tpuray_torch.utils.metrics; "
+            "tpuray_torch.apps.scenegen, tpuray_torch.apps.invrender, "
+            "tpuray_torch.diff, tpuray_torch.kernels.replay, "
+            "tpuray_torch.kernels.build, tpuray_torch.utils.metrics, "
+            "tpuray_torch.utils.checkpoint, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpuray', 'triton')); "
             "print(bad); sys.exit(1 if bad else 0)")

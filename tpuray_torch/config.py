@@ -4,10 +4,12 @@ Port of :mod:`tpuray.config`.  The reference's config surface is all
 compile-time ``#define``s: WIDTH/HEIGHT (raypng.c:8-9), MAX_DEPTH=15 and
 MAX_SOFT_SHADOWS=2 (raytracing.cl:9-11), EPSILON=0.001 and
 TRANSPERENT_THROUGH=0.8 (primitives.cl:5-7).  ``RenderConfig`` keeps those
-fields and their defaults.  The JAX package's TPU execution knobs
-(``chunk_size``, ``max_iters``, ``loop``, ``scan_iters``, ``event_slots``,
-``record_slots``, ``engine``) have no meaning here: the CUDA kernel runs one
-thread per pixel, fetches texels itself and needs no event buffers.
+fields and their defaults, and ``record_slots``, the node-record capacity of
+the record-mode megakernel that feeds the gradient (``kernels/replay.py``).
+The JAX package's other TPU execution knobs (``chunk_size``, ``max_iters``,
+``loop``, ``scan_iters``, ``event_slots``, ``engine``) have no meaning here:
+the CUDA kernel runs one thread per pixel, fetches texels itself and needs
+no event buffers.
 """
 from __future__ import annotations
 
@@ -33,6 +35,13 @@ class RenderConfig:
     # 'nearest' is the reference's integer texel fetch (primitives.cl:250-256,
     # raytracing.cl:67-76) and the only mode the port has so far.
     filter: str = "nearest"
+    # Node-record slots per pixel in record mode (one record per DFS node:
+    # hit code, parent slot and branch, per-light shadow ratios, texel
+    # pick).  0 = auto: 2^(max_depth+1)-1 capped at 48.  Parent slots are
+    # 6-bit, so at most 64.  A node past the last slot is not recorded and
+    # its subtree gets no gradient; the kernel still reports the true
+    # node count (``max_nodes``).
+    record_slots: int = 0
 
     def __post_init__(self):
         if self.filter == "bilinear":
@@ -41,6 +50,14 @@ class RenderConfig:
                 "K2); use filter='nearest'")
         if self.filter != "nearest":
             raise ValueError(f"unknown filter {self.filter!r}")
+
+    def resolved_record_slots(self) -> int:
+        if self.record_slots:
+            if not 1 <= self.record_slots <= 64:
+                raise ValueError("record_slots must be in [1, 64] (parent "
+                                 "slots are 6-bit)")
+            return self.record_slots
+        return min(2 ** (self.max_depth + 1) - 1, 48)
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)

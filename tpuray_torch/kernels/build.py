@@ -1,8 +1,8 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, which is loaded with
-``ctypes``.  A library built against PyTorch's headers would take minutes to
+into one shared library with a plain C interface (``tpuray_megakernel``,
+``tpuray_megakernel_record``), which is loaded with ``ctypes``.  A library built against PyTorch's headers would take minutes to
 compile; this one takes seconds.  The library goes into ``_build/`` (ignored
 by git) under a name that carries a hash of the sources and flags, so it is
 rebuilt only when they change.  Nothing outside this package is compiled.
@@ -104,6 +104,16 @@ def load_library() -> KernelLibrary:
         fl, fl, fl,            # epsilon, transparent_through, default_n
         p, p]                  # out, stream
     lib.tpuray_megakernel.restype = i
+    lib.tpuray_megakernel_record.argtypes = [
+        p, i, i, i,            # scene, n_spheres, n_planes, n_lights
+        p, i, i, i,            # textures, n_textures, tex_h, tex_w
+        p, i, i,               # skybox, sky_h, sky_w
+        i, i, i, i,            # width, height, max_depth, shadow_samples
+        fl, fl, fl,            # epsilon, transparent_through, default_n
+        i,                     # record slots
+        p, p, p, p, p,         # out, rec, ssr, pick, max_nodes
+        p]                     # stream
+    lib.tpuray_megakernel_record.restype = i
     lib.tpuray_error_string.argtypes = [i]
     lib.tpuray_error_string.restype = ctypes.c_void_p
     return KernelLibrary(path=path, lib=lib, log=log)

@@ -1,10 +1,14 @@
 // Whitted megakernel for NVIDIA Hopper (sm_90a): one thread renders one
 // pixel, start to finish.
 //
-// Replaces: tpuray/kernels/pallas_trace.py, _make_kernel.kernel (:659) in its
-// base configuration (no triangles, no record mode, nearest filtering),
-// launched by _pallas_forward (:2314) on 16x128 pixel tiles, plus the XLA
-// texel-event resolve _resolve_events (:2468) that followed it.
+// Replaces: tpuray/kernels/pallas_trace.py, _make_kernel.kernel (:659) with
+// no triangles and nearest filtering, launched by _pallas_forward (:2314) on
+// 16x128 pixel tiles, plus the XLA texel-event resolve _resolve_events
+// (:2468) that followed it.  Two instantiations of one body:
+//   megakernel<false>  K1, the base configuration (render_pallas :2452);
+//   megakernel<true>   K5, record mode (render_pallas_record :2665): the same
+//                      image plus one record per DFS node for the gradient's
+//                      replay (megakernel.py render_megakernel_record).
 //
 // What bounds it on this card: neither device-memory bytes nor a matrix
 // unit.  The scene is ~0.6 KB and every thread of a warp reads the same
@@ -15,8 +19,11 @@
 // shadow sample 6 occluder tests.  The limit is issue rate and divergence:
 // pixels of one warp that take different paths through the reflect /
 // refract tree serialise, and a warp runs as long as its deepest pixel.
-// ptxas gives 80 registers and an 800-byte stack frame (the ray stack, in
-// local memory) with no spills.
+// For the base instantiation ptxas gives 80 registers and an 800-byte stack
+// frame (the ray stack, in local memory) with no spills.  The record
+// instantiation adds a parent code per stack level, and per node one i32
+// record, one i32 texel pick and nl f32 shadow ratios, stored slot-major
+// ([slot, pixel]) so that the threads of a warp write adjacent words.
 //
 // Why a thread per pixel: the TPU kernel's 16x128 tiles, one-hot selects and
 // VMEM stacks exist because the TPU has vector registers and no gather.  A
@@ -57,6 +64,25 @@
 
 #define BLOCK_X 16
 #define BLOCK_Y 16
+
+// record codes (pallas_trace.py:2102-2148): solid index (spheres first),
+// LIGHT_CODE + l for light l, MISS_CODE for the sky; parent byte = 6-bit
+// parent slot | PC_REFRACT for the refracted child | PC_VALID
+#define LIGHT_CODE 64
+#define MISS_CODE 127
+#define PC_VALID 0x80
+#define PC_REFRACT 0x40
+
+// Outputs of the record instantiation (all null in the base one).  Every
+// element is written by the kernel, unused slots included.
+struct Records {
+  int krec;        // record slots per pixel
+  int sky_base;    // texel picks index the textures, then the sky from here
+  int* rec;        // [krec, n_pix] code | parent byte << 8; -1 = no node
+  float* ssr;      // [krec, nl, n_pix] soft-shadow ratio; 0 off solid hits
+  int* pick;       // [krec, n_pix] texel the node fetched; -1 = none
+  int* max_nodes;  // [1] image-wide max of the true per-pixel node count
+};
 
 // float32 values of 1/pi, 2*pi and pi, as the JAX package rounds them
 #define INV_PI 0.31830987334251404f
@@ -153,16 +179,26 @@ __device__ __forceinline__ void map_to_cube(V3 d, int face, int& u, int& v) {
   v = sv + __float2int_rz(fv * (float)face);
 }
 
+// One node's record: its code, its parent byte and texel pick.
+__device__ __forceinline__ void write_record(const Records& R, int slot, size_t pix,
+                                             size_t n_pix, int code, int pcode, int pick) {
+  R.rec[slot * n_pix + pix] = code | (pcode << 8);
+  R.pick[slot * n_pix + pix] = pick;
+}
+
+template <bool RECORD>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
            const uint8_t* __restrict__ tex, int tex_h, int tex_w,
            const uint8_t* __restrict__ sky, int sky_h, int sky_w,
            int width, int height, int max_depth, int shadow_samples,
            float eps, float through, float default_n,
-           float* __restrict__ out) {
+           float* __restrict__ out, const Records R) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
   if (col >= width || row >= height) return;
+  const size_t n_pix = (size_t)width * height;
+  const size_t pix = (size_t)row * width + col;
 
   const float* SPH = sc + BASIS_SIZE;
   const float* PL = SPH + SPHERE_STRIDE * ns;
@@ -186,11 +222,22 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
   float stk[MAX_DEPTH_CAP][11];
   int stk_dep[MAX_DEPTH_CAP];
   const float INF = __int_as_float(0x7f800000);
+  // record mode: the parent code of the current ray and of each stacked
+  // (reflected) ray, and the pixel's node count (pallas_trace.py stk_p,
+  // pcode, rec_cnt)
+  int stk_pc[MAX_DEPTH_CAP];
+  int pcode = 0, nodes = 0;
 
   for (;;) {
     V3 cx2 = c;
     bool pop = true;
     if (dep < max_depth) {
+      // a node: one record in slot `slot` if it fits; a node that does not
+      // fit gives its children parent code 0, so the replay drops them
+      const int slot = nodes++;
+      const bool rec_on = RECORD && slot < R.krec;
+      const int pc_refl = rec_on ? (PC_VALID | slot) : 0;
+      const int pc_refr = rec_on ? (PC_VALID | PC_REFRACT | slot) : 0;
       // --- findLightIntersection (primitives.cl:262-318) ---
       float lt = INF;
       int lwin = 0;
@@ -230,6 +277,10 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
         float s = __ldg(L + 4) * INV_PI;
         cx2 = v3(c.x + f * (__ldg(L + 5) * s), c.y + f * (__ldg(L + 6) * s),
                  c.z + f * (__ldg(L + 7) * s));
+        if (rec_on) {
+          write_record(R, slot, pix, n_pix, LIGHT_CODE + lwin, pcode, -1);
+          for (int i = 0; i < nl; ++i) R.ssr[((size_t)slot * nl + i) * n_pix + pix] = 0.0f;
+        }
       } else if (!isfinite(bt)) {
         // miss: skybox texel, weight f (raytracing.cl:61-81)
         int u, v;
@@ -240,6 +291,10 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
         float w = f / 255.0f;
         cx2 = v3(c.x + w * (float)px[0], c.y + w * (float)px[1],
                  c.z + w * (float)px[2]);
+        if (rec_on) {
+          write_record(R, slot, pix, n_pix, MISS_CODE, pcode, R.sky_base + sy * sky_w + sx);
+          for (int i = 0; i < nl; ++i) R.ssr[((size_t)slot * nl + i) * n_pix + pix] = 0.0f;
+        }
       } else {
         pop = false;
         V3 hp = add(o, scale(d, bt));
@@ -257,6 +312,7 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
         }
         const float ambient = __ldg(M + M_AMBIENT);
         const float tex_id = __ldg(M + M_TEXTURE_ID);
+        int pick = -1;
         if (is_plane && tex_id > -0.5f) {
           // textured plane: texel * f * ambient (primitives.cl:217-259)
           V3 b0;
@@ -275,7 +331,8 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
           int tx = floor_mod(__float2int_rz(ui), tex_w);
           int ty = floor_mod(__float2int_rz(vi), tex_h);
           int tid = (int)tex_id;
-          const uint8_t* px = tex + (((size_t)tid * tex_h + ty) * tex_w + tx) * 3;
+          pick = (tid * tex_h + ty) * tex_w + tx;
+          const uint8_t* px = tex + (size_t)pick * 3;
           float w = (f * ambient) / 255.0f;
           cx2 = v3(c.x + w * (float)px[0], c.y + w * (float)px[1],
                    c.z + w * (float)px[2]);
@@ -285,6 +342,7 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
                    c.z + amb * __ldg(M + 2));
         }
         V3 ph = add(hp, scale(n, eps));  // eps-offset hit (primitives.cl:350)
+        if (rec_on) write_record(R, slot, pix, n_pix, bwin, pcode, pick);
 
         // --- per-light soft-shadow Phong (raytracing.cl:87-136) ---
         const float diffuse = __ldg(M + M_DIFFUSE);
@@ -299,9 +357,15 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
           V3 cd = sub(lo, ph);
           V3 sd = normalize(cd);
           V3 hv = normalize(add(vdir, sd));
-          // backface gate (pallas_trace.py:2014): samples still drawn
-          bool dead = (dot(n, sd) <= 0.0f || diffuse <= 0.0f) &&
-                      (specular <= 0.0f || (dot(n, hv) <= 0.0f && shininess > 0.0f));
+          // backface gate (pallas_trace.py:1986-2015): samples still drawn.
+          // Record mode gates on geometry only: a light dead only because
+          // diffuse or specular is 0 still has a gradient with respect to
+          // them, so its recorded ratio must be the real one.
+          const bool geo_diff_dead = dot(n, sd) <= 0.0f;
+          const bool geo_spec_dead = dot(n, hv) <= 0.0f && shininess > 0.0f;
+          const bool dead = RECORD ? (geo_diff_dead && geo_spec_dead)
+                                   : ((geo_diff_dead || diffuse <= 0.0f) &&
+                                      (specular <= 0.0f || geo_spec_dead));
           float soft = 0.0f;
           for (int s = 0; s < shadow_samples; ++s) {
             float theta = TWO_PI * xorshift32(rng);
@@ -334,6 +398,7 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
             soft += blocked ? 0.0f : opac;
           }
           float ssr = shadow_samples ? soft / (float)shadow_samples : soft + 1.0f;
+          if (rec_on) R.ssr[((size_t)slot * nl + i) * n_pix + pix] = ssr;
           float dist = sqrtf(dot(cd, cd));
           dist = dist > 0.0f ? dist : 1.0f;
           float fall = __ldg(L + 4) * INV_PI / (dist * dist) * ssr;
@@ -387,6 +452,10 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
             dep += 1;
             sp += 1;
             pushed = true;
+            if constexpr (RECORD) {  // the stacked ray is the reflected child
+              stk_pc[sp - 2] = pc_refl;
+              pcode = pc_refr;
+            }
           }
         }
         if (!pushed) {  // continue along the reflected ray
@@ -395,6 +464,7 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
           c = cx2;
           f = f_cont;
           dep += 1;
+          if constexpr (RECORD) pcode = pc_refl;
         }
       }
     }
@@ -410,13 +480,27 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
       f = e[9];
       n1 = e[10];
       dep = stk_dep[sp - 2];
+      if constexpr (RECORD) pcode = stk_pc[sp - 2];
       sp -= 1;
     }
   }
-  float* px = out + ((size_t)row * width + col) * 3;
+  float* px = out + pix * 3;
   px[0] = c.x;
   px[1] = c.y;
   px[2] = c.z;
+  if constexpr (RECORD) {
+    for (int s = min(nodes, R.krec); s < R.krec; ++s) {
+      R.rec[s * n_pix + pix] = -1;
+      R.pick[s * n_pix + pix] = -1;
+      for (int i = 0; i < nl; ++i) R.ssr[((size_t)s * nl + i) * n_pix + pix] = 0.0f;
+    }
+    // image-wide max of the true node count: a warp reduction over the
+    // threads that got here together, then one atomic per group
+    const unsigned group = __activemask();
+    const int warp_max = __reduce_max_sync(group, nodes);
+    const int lane = (threadIdx.y * blockDim.x + threadIdx.x) & 31;
+    if (lane == __ffs(group) - 1) atomicMax(R.max_nodes, warp_max);
+  }
 }
 
 extern "C" int tpuray_megakernel(const float* scene, int ns, int npl, int nl,
@@ -427,9 +511,29 @@ extern "C" int tpuray_megakernel(const float* scene, int ns, int npl, int nl,
                                  float default_n, float* out, void* stream) {
   dim3 block(BLOCK_X, BLOCK_Y);
   dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (height + BLOCK_Y - 1) / BLOCK_Y);
-  megakernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  const Records none = {0, 0, nullptr, nullptr, nullptr, nullptr};
+  megakernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
       scene, ns, npl, nl, tex, tex_h, tex_w, sky, sky_h, sky_w, width, height,
-      max_depth, shadow_samples, eps, through, default_n, out);
+      max_depth, shadow_samples, eps, through, default_n, out, none);
+  return (int)cudaGetLastError();
+}
+
+// Record mode: the image in `out` plus the node records; `n_tex` textures
+// precede the sky in the texel-pick index space.  Zeroes *max_nodes first.
+extern "C" int tpuray_megakernel_record(
+    const float* scene, int ns, int npl, int nl, const unsigned char* tex,
+    int n_tex, int tex_h, int tex_w, const unsigned char* sky, int sky_h,
+    int sky_w, int width, int height, int max_depth, int shadow_samples,
+    float eps, float through, float default_n, int krec, float* out, int* rec,
+    float* ssr, int* pick, int* max_nodes, void* stream) {
+  cudaError_t err = cudaMemsetAsync(max_nodes, 0, sizeof(int), (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  dim3 block(BLOCK_X, BLOCK_Y);
+  dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (height + BLOCK_Y - 1) / BLOCK_Y);
+  const Records R = {krec, n_tex * tex_h * tex_w, rec, ssr, pick, max_nodes};
+  megakernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+      scene, ns, npl, nl, tex, tex_h, tex_w, sky, sky_h, sky_w, width, height,
+      max_depth, shadow_samples, eps, through, default_n, out, R);
   return (int)cudaGetLastError();
 }
 

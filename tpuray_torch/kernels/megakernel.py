@@ -1,9 +1,10 @@
 """The Whitted megakernel: one CUDA kernel renders the whole image.
 
 Port of ``tpuray/kernels/pallas_trace.py``: the megakernel ``_make_kernel``'s
-``kernel`` (:659) in its base configuration (no triangles, no record mode,
-nearest filtering), ``pack_uniforms`` (:151), ``_pallas_forward`` (:2314) and
-``render_pallas`` (:2452).
+``kernel`` (:659) without triangles and with nearest filtering, in its base
+configuration and in record mode, ``pack_uniforms`` (:151),
+``_pallas_forward`` (:2314), ``render_pallas`` (:2452) and
+``render_pallas_record`` (:2665).
 
 Per pixel it runs the reference's whole traversal (raytracing.cl:14-195):
 primary-ray generation (raygen.cl:5-25), the depth-first reflect/refract
@@ -13,7 +14,7 @@ gather in VMEM, so it wrote texel "events" that an XLA gather resolved
 after the kernel; here the texels are read where they are needed, so there
 are no event buffers, no overflow counters and nothing to retry.
 
-Three functions:
+The functions:
 
 * :func:`pack_scene` flattens scene + camera basis into one f32 buffer with
   static offsets (:class:`SceneLayout`), the layout ``csrc/megakernel.cu``
@@ -21,7 +22,29 @@ Three functions:
 * :func:`render_megakernel_reference` is the plain PyTorch version: the same
   per-pixel DFS as whole-image masked tensor code;
 * :func:`render_megakernel` is the wrapper: CPU tensors go to the plain
-  version, CUDA tensors launch the CUDA kernel (or raise).
+  version, CUDA tensors launch the CUDA kernel (or raise);
+* :func:`render_megakernel_record` and its plain version
+  :func:`render_megakernel_record_reference` render the same image and
+  also write one record per DFS node, which the gradient's replay
+  (``replay.py``) reads.
+
+Records (``pallas_trace.py:2102-2148``; the layout is the port's own):
+
+* ``rec`` [Krec, n_pix] i32: ``code | parent_byte << 8`` for node slot s of
+  each pixel, in DFS order, -1 where the pixel has no node s.  ``code`` is
+  the solid hit (spheres first, then planes), ``LIGHT_CODE + l`` for light
+  l, or ``MISS_CODE``.  The parent byte is the parent's 6-bit slot, plus
+  ``PC_REFRACT`` for the refracted child, plus ``PC_VALID``; the root has
+  0.  A node past slot Krec - 1 is not written and its children get parent
+  byte 0, so the replay drops the subtree.
+* ``ssr`` [Krec, nl, n_pix] f32: each solid node's soft-shadow ratio per
+  light (1.0 without shadow samples), 0 elsewhere.
+* ``pick`` [Krec, n_pix] i32: the texel the node fetched (a textured plane
+  or the sky), -1 for none.  Textures come first in the index space
+  (``(tid * tex_h + y) * tex_w + x``), then the sky (``n_tex * tex_h *
+  tex_w + y * sky_w + x``), as in the JAX package's texel atlas.
+* ``max_nodes`` [] i32: the image-wide maximum of the true node count, also
+  where it exceeds Krec.
 """
 from __future__ import annotations
 
@@ -40,6 +63,14 @@ from . import primitives as pr
 # The kernel's per-thread ray stack has this many levels (csrc/megakernel.cu
 # MAX_DEPTH_CAP); the reference's depth is 15.
 MAX_DEPTH_CAP = 16
+
+# record codes, mirrored by csrc/megakernel.cu
+LIGHT_CODE = 64
+MISS_CODE = 127
+PC_VALID = 0x80
+PC_REFRACT = 0x40
+MAX_RECORD_SOLIDS = LIGHT_CODE     # solid codes must stay below LIGHT_CODE
+MAX_RECORD_LIGHTS = 62             # LIGHT_CODE + l below 126
 
 # Packed layout, mirrored by the #defines in csrc/megakernel.cu:
 #   [0:15)  basis: corner3, origin3, up3, right3, w_factor, h_factor, row0
@@ -152,6 +183,23 @@ def render_megakernel_reference(packed: PackedScene, assets: SceneAssets,
     finishes the pixel), push (a transparent hit stacks the reflected ray
     and follows the refracted one) or continue along the reflected ray.
     """
+    return _trace_reference(packed, assets, cfg, None)[0]
+
+
+def render_megakernel_record_reference(packed: PackedScene,
+                                       assets: SceneAssets,
+                                       cfg: RenderConfig):
+    """Plain PyTorch version of the record-mode megakernel: (image
+    [H, W, 3] f32, records) with the records of the module docstring."""
+    _check_record(packed, cfg)
+    return _trace_reference(packed, assets, cfg,
+                            cfg.resolved_record_slots())
+
+
+def _trace_reference(packed: PackedScene, assets: SceneAssets,
+                     cfg: RenderConfig, krec):
+    """The whole-image DFS behind both plain versions; ``krec`` None
+    renders without records."""
     dev = packed.buf.device
     f32 = torch.float32
     H, W, D = cfg.height, cfg.width, cfg.max_depth
@@ -193,6 +241,16 @@ def render_megakernel_reference(packed: PackedScene, assets: SceneAssets,
     stk = torch.zeros(D, n_pix, 11, dtype=f32, device=dev)
     stk_dep = torch.zeros(D, n_pix, dtype=torch.int64, device=dev)
     inf = torch.tensor(float("inf"), dtype=f32, device=dev)
+    record = krec is not None
+    if record:
+        i32 = torch.int32
+        rec = torch.full((krec, n_pix), -1, dtype=i32, device=dev)
+        pick = torch.full((krec, n_pix), -1, dtype=i32, device=dev)
+        ssr_out = torch.zeros(krec, nl, n_pix, dtype=f32, device=dev)
+        nodes = torch.zeros(n_pix, dtype=torch.int64, device=dev)
+        pcode = torch.zeros(n_pix, dtype=torch.int64, device=dev)
+        stk_pc = torch.zeros(D, n_pix, dtype=torch.int64, device=dev)
+        sky_base = n_tex * tex_h * tex_w
 
     while True:
         act = (~done).nonzero().squeeze(1)
@@ -270,6 +328,7 @@ def render_megakernel_reference(packed: PackedScene, assets: SceneAssets,
         #     rgb * f * ambient (raytracing.cl:83-84, primitives.cl:217-259)
         is_plane = bwin >= ns
         textured = is_solid & is_plane & (mat[:, M_TEXTURE_ID] > -0.5)
+        tex_idx = torch.full_like(DEP, -1)
         if npl:
             pidx = (bwin - ns).clamp(0, npl - 1)
             tx, ty = pr.texture_texel_coords(
@@ -278,6 +337,7 @@ def render_megakernel_reference(packed: PackedScene, assets: SceneAssets,
             tid = torch.where(textured, mat[:, M_TEXTURE_ID].to(torch.int64),
                               torch.zeros_like(tx)).clamp(0, n_tex - 1)
             tex_rgb = tex[tid, ty, tx].to(f32)
+            tex_idx = (tid * tex_h + ty) * tex_w + tx
             cx2 = torch.where(textured[:, None],
                               cx2 + ((F * ambient) / 255.0)[:, None] * tex_rgb,
                               cx2)
@@ -288,11 +348,33 @@ def render_megakernel_reference(packed: PackedScene, assets: SceneAssets,
         ph = hpt + nrm * eps      # eps-offset hit point (primitives.cl:350)
 
         # --- per-light soft-shadow Phong (raytracing.cl:87-136) ---
+        ssrs = None
         if bool(is_solid.any()):
-            acc, rng_sh = _shade(O, ph, nrm, mat, F, RNG, sph, s_transp, pln,
-                                 lgt, n_samples, through)
+            acc, rng_sh, ssrs = _shade(O, ph, nrm, mat, F, RNG, sph, s_transp,
+                                       pln, lgt, n_samples, through, record)
             cx2 = torch.where(is_solid[:, None], cx2 + acc, cx2)
             RNG = torch.where(is_solid, rng_sh, RNG)
+
+        # --- node records (pallas_trace.py:2102-2148) ---
+        if record:
+            PC, slot = pcode[act], nodes[act]
+            fits = slot < krec
+            can = work & fits
+            code = torch.where(is_light, LIGHT_CODE + lwin,
+                               torch.where(is_miss, MISS_CODE, bwin))
+            pk = torch.where(is_miss, sky_base + sy * sky_w + sx,
+                             torch.where(textured, tex_idx,
+                                         torch.full_like(tex_idx, -1)))
+            lanes, s_can = act[can], slot[can]
+            rec[s_can, lanes] = (code | (PC << 8))[can].to(i32)
+            pick[s_can, lanes] = pk[can].to(i32)
+            if ssrs is not None:
+                shaded = can & is_solid
+                ssr_out[slot[shaded], :, act[shaded]] = torch.stack(
+                    ssrs, 1)[shaded]
+            pc_refl = torch.where(fits, PC_VALID | slot, 0)
+            pc_refr = torch.where(fits, PC_VALID | PC_REFRACT | slot, 0)
+            nodes[act] = slot + work.to(torch.int64)
 
         # --- reflect / refract continuation (raytracing.cl:138-179) ---
         mat_n = mat[:, M_N]
@@ -323,6 +405,8 @@ def render_megakernel_reference(packed: PackedScene, assets: SceneAssets,
                 [ph[push], rd[push], cx2[push], f_cont[push, None],
                  N1[push, None]], 1)
             stk_dep[lvl, lanes] = dep1[push]
+            if record:      # the stacked ray is the reflected child
+                stk_pc[lvl, lanes] = pc_refl[push]
         new_o = torch.where(push[:, None], co,
                             torch.where(cont[:, None], ph, O))
         new_d = torch.where(push[:, None], td,
@@ -342,37 +426,55 @@ def render_megakernel_reference(packed: PackedScene, assets: SceneAssets,
             new_f[popm] = r[:, 9]
             new_n1[popm] = r[:, 10]
             new_dep[popm] = stk_dep[lvl, lanes]
+        if record:
+            new_pc = torch.where(push, pc_refr, torch.where(cont, pc_refl, PC))
+            if bool(popm.any()):
+                new_pc[popm] = stk_pc[SP[popm] - 2, act[popm]]
+            pcode[act] = new_pc
         o[act], d[act], c[act], f[act], n1[act] = new_o, new_d, new_c, \
             new_f, new_n1
         dep[act] = new_dep
         sp[act] = SP + push.to(torch.int64) - popm.to(torch.int64)
         rng[act] = RNG
         done[act] = finish
-    return c.reshape(H, W, 3)
+    img = c.reshape(H, W, 3)
+    if not record:
+        return img, None
+    max_nodes = (nodes.max() if n_pix else nodes.new_zeros(())).to(i32)
+    return img, {"rec": rec, "ssr": ssr_out, "pick": pick,
+                 "max_nodes": max_nodes}
 
 
 def _shade(O, ph, nrm, mat, F, rng, sph, s_transp, pln, lgt, n_samples,
-           through):
+           through, record=False):
     """Soft-shadow Phong of every light at the offset hit points ``ph``
     (raytracing.cl:87-136, pallas_trace.py:1963-2100).  Returns the added
-    colour [n, 3] and the advanced RNG state.
+    colour [n, 3], the advanced RNG state and each light's shadow ratio
+    [n].
 
     Draw order: lights outer, samples inner, theta then phi.  A light that
     can add nothing at this point (backface gate, pallas_trace.py:2014)
-    still draws its samples, which count as blocked."""
+    still draws its samples, which count as blocked.  In record mode the
+    gate is geometric only (pallas_trace.py:1998-2012): a light dead only
+    because diffuse or specular is 0 keeps its real ratio, which the
+    gradient with respect to diffuse and specular needs."""
     diffuse, specular = mat[:, M_DIFFUSE], mat[:, M_SPECULAR]
     shininess = mat[:, M_SHININESS]
     vdir = pr.normalize3(O - ph)
     acc = torch.zeros_like(ph)
+    ssrs = []
     for i in range(lgt.shape[0]):
         lo, lrad, inten = lgt[i, 0:3], lgt[i, 3], lgt[i, 4]
         cd = lo - ph
         sd = pr.normalize3(cd)
         hv = pr.normalize3(vdir + sd)
-        diff_dead = (pr.dot3(nrm, sd) <= 0.0) | (diffuse <= 0.0)
-        spec_dead = (specular <= 0.0) | ((pr.dot3(nrm, hv) <= 0.0)
-                                         & (shininess > 0.0))
-        dead = diff_dead & spec_dead
+        geo_diff_dead = pr.dot3(nrm, sd) <= 0.0
+        geo_spec_dead = (pr.dot3(nrm, hv) <= 0.0) & (shininess > 0.0)
+        if record:
+            dead = geo_diff_dead & geo_spec_dead
+        else:
+            dead = ((geo_diff_dead | (diffuse <= 0.0))
+                    & ((specular <= 0.0) | geo_spec_dead))
         soft = torch.zeros_like(F)
         for _ in range(n_samples):
             rng, r1 = pr.xorshift32(rng)
@@ -399,6 +501,7 @@ def _shade(O, ph, nrm, mat, F, rng, sph, s_transp, pln, lgt, n_samples,
                 blocked |= h & (t < tmax)
             soft = soft + torch.where(blocked, torch.zeros_like(opac), opac)
         ssr = soft / float(n_samples) if n_samples else soft + 1.0
+        ssrs.append(ssr)
         dist = torch.sqrt(pr.dot3(cd, cd))
         dist = torch.where(dist > 0, dist, torch.ones_like(dist))
         fall = inten * pr.INV_PI / (dist * dist) * ssr
@@ -407,7 +510,7 @@ def _shade(O, ph, nrm, mat, F, rng, sph, s_transp, pln, lgt, n_samples,
         ndl = pr.dot3(nrm, sd).clamp(min=0.0)
         diff = ndl * diffuse * F
         acc = acc + ((spec + diff) * fall)[:, None] * lgt[i, 5:8]
-    return acc, rng
+    return acc, rng, ssrs
 
 
 # ---------------------------------------------------------------------------
@@ -440,6 +543,24 @@ def _check_inputs(packed: PackedScene, assets: SceneAssets,
     if packed.max_texture_id >= tex.shape[0]:
         raise ValueError(f"a plane uses texture {packed.max_texture_id} but "
                          f"only {tex.shape[0]} textures are loaded")
+
+
+def _check_record(packed: PackedScene, cfg: RenderConfig) -> int:
+    """Record slots for ``cfg``; raises where a record code cannot hold
+    the scene (replay.py:144-146)."""
+    lay = packed.layout
+    if lay.n_spheres + lay.n_planes > MAX_RECORD_SOLIDS \
+            or lay.n_lights > MAX_RECORD_LIGHTS:
+        raise ValueError(
+            f"record mode takes at most {MAX_RECORD_SOLIDS} solids and "
+            f"{MAX_RECORD_LIGHTS} lights; the scene has "
+            f"{lay.n_spheres + lay.n_planes} solids and {lay.n_lights} lights")
+    return cfg.resolved_record_slots()
+
+
+def _kernel_error(lib, err, what):
+    msg = ctypes.string_at(lib.tpuray_error_string(err)).decode()
+    return RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
 def render_megakernel(packed: PackedScene, assets: SceneAssets,
@@ -476,11 +597,62 @@ def render_megakernel(packed: PackedScene, assets: SceneAssets,
             float(np.float32(cfg.default_n)),
             out.data_ptr(), stream)
     if err:
-        msg = ctypes.string_at(lib.tpuray_error_string(err)).decode()
-        raise RuntimeError(f"megakernel launch failed: CUDA error {err} "
-                           f"({msg})")
+        raise _kernel_error(lib, err, "megakernel")
     render_megakernel.launches += 1
     return out
 
 
 render_megakernel.launches = 0
+
+
+def render_megakernel_record(packed: PackedScene, assets: SceneAssets,
+                             cfg: RenderConfig):
+    """Record-mode render: (image [H, W, 3] f32, records), the records of
+    the module docstring, on the scene's device.
+
+    Tensors on the CPU go to :func:`render_megakernel_record_reference`.
+    Tensors on a CUDA device launch the record instantiation of the CUDA
+    kernel on the current stream (or raise); ``launches`` counts them.
+    ``max_nodes`` stays on the device: reading it synchronises."""
+    _check_inputs(packed, assets, cfg)
+    krec = _check_record(packed, cfg)
+    dev = packed.buf.device
+    if dev.type == "cpu":
+        return render_megakernel_record_reference(packed, assets, cfg)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from .build import load_library
+
+    lib = load_library().lib
+    lay, tex, sky = packed.layout, assets.textures, assets.skybox
+    n_pix = cfg.height * cfg.width
+    out = torch.empty((cfg.height, cfg.width, 3), dtype=torch.float32,
+                      device=dev)
+    rec = torch.empty((krec, n_pix), dtype=torch.int32, device=dev)
+    ssr = torch.empty((krec, lay.n_lights, n_pix), dtype=torch.float32,
+                      device=dev)
+    pick = torch.empty((krec, n_pix), dtype=torch.int32, device=dev)
+    max_nodes = torch.empty((), dtype=torch.int32, device=dev)
+    records = {"rec": rec, "ssr": ssr, "pick": pick, "max_nodes": max_nodes}
+    if n_pix == 0:
+        max_nodes.zero_()
+        return out, records
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.tpuray_megakernel_record(
+            packed.buf.data_ptr(), lay.n_spheres, lay.n_planes, lay.n_lights,
+            tex.data_ptr(), tex.shape[0], tex.shape[1], tex.shape[2],
+            sky.data_ptr(), sky.shape[0], sky.shape[1],
+            cfg.width, cfg.height, cfg.max_depth, cfg.shadow_samples,
+            float(np.float32(cfg.epsilon)),
+            float(np.float32(cfg.transparent_through)),
+            float(np.float32(cfg.default_n)), krec,
+            out.data_ptr(), rec.data_ptr(), ssr.data_ptr(), pick.data_ptr(),
+            max_nodes.data_ptr(), stream)
+    if err:
+        raise _kernel_error(lib, err, "record megakernel")
+    render_megakernel_record.launches += 1
+    return out, records
+
+
+render_megakernel_record.launches = 0

@@ -247,6 +247,32 @@ def spec_arrays(spec: SceneSpec) -> Dict[str, np.ndarray]:
     return arrays
 
 
+def scene_leaves(scene: Scene) -> Dict[str, torch.Tensor]:
+    """The scene's tensors by name, in field order, materials as
+    ``sphere_mat.rgb`` etc. (the names of the JAX ``Scene``'s leaves)."""
+    out = {}
+    for f in dataclasses.fields(scene):
+        value = getattr(scene, f.name)
+        if isinstance(value, Materials):
+            for k in _MATERIAL_DTYPES:
+                out[f"{f.name}.{k}"] = getattr(value, k)
+        else:
+            out[f.name] = value
+    return out
+
+
+def scene_from_leaves(leaves: Dict[str, torch.Tensor]) -> Scene:
+    """Inverse of :func:`scene_leaves`; the tensors are used as they are."""
+    kw = {}
+    for f in dataclasses.fields(Scene):
+        if f.type in ("Materials", Materials):
+            kw[f.name] = Materials(**{k: leaves[f"{f.name}.{k}"]
+                                      for k in _MATERIAL_DTYPES})
+        else:
+            kw[f.name] = leaves[f.name]
+    return Scene(**kw)
+
+
 def scene_from_arrays(arrays: Dict[str, np.ndarray], device) -> Scene:
     """Build a ``Scene`` from leaves named as the JAX ``Scene``'s fields
     (materials as ``sphere_mat.rgb`` etc.).  This is how identical numbers
@@ -256,18 +282,7 @@ def scene_from_arrays(arrays: Dict[str, np.ndarray], device) -> Scene:
         dtype = _MATERIAL_DTYPES.get(name.rpartition(".")[2], np.float32)
         return torch.from_numpy(np.array(arrays[name], dtype)).to(device)
 
-    def mats(prefix):
-        return Materials(**{k: t(f"{prefix}.{k}") for k in _MATERIAL_DTYPES})
-
-    return Scene(
-        sphere_origin=t("sphere_origin"), sphere_radius=t("sphere_radius"),
-        sphere_mat=mats("sphere_mat"),
-        plane_normal=t("plane_normal"), plane_point=t("plane_point"),
-        plane_mat=mats("plane_mat"),
-        light_origin=t("light_origin"), light_radius=t("light_radius"),
-        light_intensity=t("light_intensity"), light_rgb=t("light_rgb"),
-        tri_v0=t("tri_v0"), tri_v1=t("tri_v1"), tri_v2=t("tri_v2"),
-        tri_mat=mats("tri_mat"))
+    return scene_from_leaves({name: t(name) for name in arrays})
 
 
 def build_scene(spec: SceneSpec, device) -> Scene:
