@@ -22,7 +22,21 @@ Phases, one line each; any failure raises and the exit code is nonzero:
    ``tpuray_torch.apps.invrender`` at 128x96 depth 3 for 20 steps, which
    must go through K5 and lower the loss;
 9. times: K5 against K1 (the cost of recording), one training step and its
-   parts with peak memory, at the training shapes.
+   parts with peak memory, at the training shapes;
+10. the kernel with triangles (K3 and K4, one path) against its plain
+    version, whose triangle search is brute force: ``mesh_benchmark_scene(4)``
+    (7,424 triangles) at 512x384 depth 3, the whole image, and 163,840
+    triangles on a slab of rows;
+11. K5 on those mesh scenes: records, triangle ids, texel picks and shadow
+    ratios against the plain version; the replay against K5's image; the
+    gradient on the card against the CPU's, triangle vertices included;
+12. the raypng path on mesh archives written by the port's ``sceneio``
+    (7,424 and 163,840 triangles, 512x384 depth 3), one launch each, and
+    the invrender path on the 7,424-triangle archive (128x96 depth 3, 10
+    steps), which must go through K5 and lower the loss;
+13. times and bounds of the mesh kernels: 512x384 d3 with 7,424 and with
+    163,840 triangles, 3840x2160 d6 with 10,240, and K5 at 512x384 d3 with
+    7,424.
 
 It prints a JSON line of per-kernel results, then, last, the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it fails and
@@ -32,10 +46,15 @@ Each kernel's ``bound_ms`` is the least time the card could take for the
 same work: the larger of its FLOPs over 67 TFLOP/s (fp32 outside the tensor
 cores) and its bytes over 3.35 TB/s (H100 SXM data sheet).  The FLOPs are
 counted from this run's DFS nodes, read from K5's records at the same
-inputs (solid hits, misses and light hits, at most 64 per pixel), times the
-fp32 operations of one node reckoned from ``csrc/megakernel.cu`` (a sqrt,
-a division or a sine counted as one); the bytes are the image written once,
-the texels the nodes fetched, the packed scene and, for K5, the records.
+inputs (solid hits, triangle hits included, misses and light hits, at most
+64 per pixel), times the fp32 operations of one node reckoned from
+``csrc/megakernel.cu`` (a sqrt, a division or a sine counted as one); the
+bytes are the image written once, the texels the nodes fetched, the packed
+scene, the triangle tables and, for K5, the records.  With triangles the
+FLOPs add the work of the triangle walks: the box tests and the (ray,
+triangle) Möller–Trumbore pairs that the kernel's AABB tree leaves, counted
+on the host by :class:`TreeSearch` at the same inputs.  That is the bound of
+this design (its tree, its culls), not of any acceleration structure.
 """
 import json
 import os
@@ -45,6 +64,8 @@ import time
 
 import torch
 
+from tpuray_torch.kernels import primitives as pr
+
 AGREE_ABS = 1e-3
 AGREE_FRAC = 0.999
 MEAN_ABS = 1e-4
@@ -53,6 +74,9 @@ SSR_ABS = 1e-5
 # :297-303): the card's reductions sum in another order than the CPU's
 REPLAY_MEAN = 1e-3
 REPLAY_MAX = 5e-2
+# with triangles (tests/test_pallas_vjp.py:96-97)
+TRI_REPLAY_MEAN = 2e-3
+TRI_REPLAY_MAX = 1e-1
 GRAD_ATOL = 2e-2
 # the golden drive's bar (ROADMAP.md, Tier-1 verify)
 GOLDEN_MEAN = 1.0
@@ -61,9 +85,24 @@ GOLDEN_PSNR = 40.0
 GOLDEN_CAMERA = ((0.8, 2.5, -8.0), (0.2, 0.0, 1.0), 90.0, 1.0)
 ASSET_SEED = 0
 INVRENDER_STEPS = 20
+MESH_INVRENDER_STEPS = 10
 # published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+TRI_CODE = 126
+# fp32 operations of one tri_t test and one box_hit test in
+# csrc/megakernel.cu, every branch taken
+MT_FLOPS = 54
+BOX_FLOPS = 25
+# the mesh cells (BASELINE stages 5 and 6, benchmarks/stream.py):
+# (icosphere order, torus resolution) -> 7,424, 10,240 and 163,840 triangles
+MESH_K3 = (4, (48, 24))
+MESH_4K = (4, (64, 40))
+MESH_K4 = (6, (256, 160))
+# (row0, rows) of the slabs where the plain version is too slow for the
+# whole image: through the meshes (rows 217-274 of 384 hold triangle hits)
+K4_SLAB = (240, 16)
+SLAB_4K = (1528, 16)
 
 
 def phase(n, name, text):
@@ -88,15 +127,16 @@ def node_flops(ns, npl, nl, samples):
             "miss": 25, "light": 10}
 
 
-def bound(records, packed, cfg, with_records):
+def bound(records, packed, cfg, with_records, walks=None):
     """(bound_ms, bound_by, node counts) of one megakernel launch on these
-    inputs, from the records of K5 on the same inputs."""
+    inputs, from the records of K5 on the same inputs and, with triangles,
+    the counts of a :class:`TreeSearch` run at the same inputs."""
     lay = packed.layout
     rec = records["rec"]
     code, written = rec & 0xFF, rec >= 0
+    solid = (code < lay.n_spheres + lay.n_planes) | (code == TRI_CODE)
     counts = {"nodes": int(written.sum()),
-              "solid": int((written & (code < lay.n_spheres
-                                       + lay.n_planes)).sum()),
+              "solid": int((written & solid).sum()),
               "miss": int((written & (code == 127)).sum()),
               "picks": int((records["pick"] >= 0).sum())}
     counts["light"] = counts["nodes"] - counts["solid"] - counts["miss"]
@@ -106,13 +146,133 @@ def bound(records, packed, cfg, with_records):
              + counts["miss"] * f["miss"] + counts["light"] * f["light"])
     n_pix = cfg.width * cfg.height
     nbytes = n_pix * 12 + counts["picks"] * 3 + packed.buf.numel() * 4
+    if packed.tris is not None:
+        t = packed.tris
+        nbytes += 4 * (t.geom.numel() + t.attr.numel() + t.node.numel())
+        counts.update(mt_pairs=walks.pairs, box_tests=walks.boxes)
+        flops += walks.pairs * MT_FLOPS + walks.boxes * BOX_FLOPS
     if with_records:
-        nbytes += rec.shape[0] * n_pix * (8 + 4 * lay.n_lights) + 4
+        nbytes += rec.shape[0] * n_pix * (12 + 4 * lay.n_lights) + 4
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     counts.update(flops=flops, bytes=nbytes,
                   max_nodes=int(records["max_nodes"]))
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", counts)
+
+
+class TreeSearch:
+    """The plain version's triangle search walked through the kernel's AABB
+    tree as ``tri_walk`` in ``csrc/megakernel.cu`` walks it, which counts
+    the work the tree leaves: box tests (``boxes``) and (ray, triangle)
+    Möller–Trumbore pairs (``pairs``).  Its answers are the brute force's
+    (the boxes are grown to be conservative).  The counts are a lower bound
+    of the kernel's: a closest-hit walk is counted with its final bound
+    (the kernel's shrinks as hits land), a shadow feeler up to its first
+    opaque triangle (the kernel stops there).  Rays go in chunks of
+    ``chunk`` to bound the pair lists."""
+
+    def __init__(self, tris, chunk=1 << 15):
+        self.tris, self.chunk = tris, chunk
+        self.pairs = 0
+        self.boxes = 0
+
+    @staticmethod
+    def _inverse(d):
+        return 1.0 / torch.where(d.abs() < 1e-12,
+                                 torch.full_like(d, 1e-12), d)
+
+    def _walk(self, o, inv, bound, stop=None):
+        """(lane, triangle) of the triangles of every block the walk
+        enters.  With ``stop`` [N] (the last triangle a lane's walk reaches)
+        it counts the box tests and the pairs up to there."""
+        t = self.tris
+        dev = o.device
+        lane = torch.arange(o.shape[0], device=dev)
+        node = torch.zeros_like(lane)
+        span = t.block * t.fanout ** (len(t.level_n) - 1)
+        for level, n_level in enumerate(t.level_n):
+            if level:
+                lane = lane.repeat_interleave(t.fanout)
+                node = (node[:, None] * t.fanout + torch.arange(
+                    t.fanout, device=dev)).reshape(-1)
+                keep = node < n_level
+                lane, node = lane[keep], node[keep]
+                span //= t.fanout
+            if stop is not None:
+                self.boxes += int((node * span <= stop[lane]).sum())
+            box = t.level(level)[node]
+            oo, ii = o[lane], inv[lane]
+            t0 = (box[:, 0:3] - oo) * ii
+            t1 = (box[:, 4:7] - oo) * ii
+            near, far = torch.minimum(t0, t1), torch.maximum(t0, t1)
+            lo = near[:, 0].clamp(min=0.0).maximum(near[:, 1]).maximum(
+                near[:, 2])
+            hi = torch.minimum(bound[lane], far[:, 0]).minimum(
+                far[:, 1]).minimum(far[:, 2])
+            hit = lo <= hi
+            lane, node = lane[hit], node[hit]
+        lane = lane.repeat_interleave(t.block)
+        tri = (node[:, None] * t.block
+               + torch.arange(t.block, device=dev)).reshape(-1)
+        keep = tri < t.n
+        lane, tri = lane[keep], tri[keep]
+        if stop is not None:
+            self.pairs += int((tri <= stop[lane]).sum())
+        return lane, tri
+
+    def _test(self, o, d, lane, tri):
+        t = self.tris
+        return pr.intersect_triangle_edges(o[lane], d[lane], t.v0[tri],
+                                           t.e1[tri], t.e2[tri])
+
+    def _chunked(self, fn, *lanes):
+        outs = [fn(*(x[a:a + self.chunk] for x in lanes))
+                for a in range(0, lanes[0].shape[0], self.chunk)]
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+
+    def closest(self, o, d, lt, bt):
+        return self._chunked(self._closest, o, d, lt, bt)
+
+    def blocked(self, p, q, tmax):
+        return self._chunked(self._blocked, p, q, tmax)
+
+    def _closest(self, o, d, lt, bt):
+        n, dev, inv = o.shape[0], o.device, self._inverse(d)
+        lt_seg = torch.where(torch.isfinite(lt), lt, torch.zeros_like(lt))
+        lane, tri = self._walk(o, inv, torch.maximum(lt_seg, bt))
+        hit, t = self._test(o, d, lane, tri)
+        t = torch.where(hit, t, torch.full_like(t, float("inf")))
+        best = torch.full((n,), float("inf"), device=dev).scatter_reduce(
+            0, lane, t, "amin")
+        win = hit & (t == best[lane])
+        wid = torch.full((n,), self.tris.n, dtype=torch.int64,
+                         device=dev).scatter_reduce(0, lane[win], tri[win],
+                                                    "amin")
+        wid = torch.where(wid == self.tris.n, torch.full_like(wid, -1), wid)
+        occ = hit & (t <= lt[lane]) & ~self.tris.transparent[tri]
+        lblock = torch.zeros(n, dtype=torch.bool, device=dev)
+        lblock[lane[occ]] = True
+        final = torch.minimum(bt, best)
+        final = torch.where(lblock, final, torch.maximum(lt_seg, final))
+        self._walk(o, inv, final,
+                   torch.full((n,), self.tris.n, dtype=torch.int64,
+                              device=dev))
+        return best, wid, lblock
+
+    def _blocked(self, p, q, tmax):
+        n, dev, inv = p.shape[0], p.device, self._inverse(q)
+        lane, tri = self._walk(p, inv, tmax)
+        hit, t = self._test(p, q, lane, tri)
+        rel = hit & (t < tmax[lane])
+        transp = self.tris.transparent[tri]
+        opaque = rel & ~transp
+        first = torch.full((n,), self.tris.n, dtype=torch.int64,
+                           device=dev).scatter_reduce(0, lane[opaque],
+                                                      tri[opaque], "amin")
+        count = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
+            0, lane[rel & transp], torch.ones_like(lane[rel & transp]))
+        self._walk(p, inv, tmax, first)
+        return first < self.tris.n, count
 
 
 def profile_step(trainer, shape):
@@ -153,6 +313,262 @@ def profile_step(trainer, shape):
             f"wall under the profiler ({busy / wall_us:.1%}); most device "
             "time: " + ", ".join(f"{name[:48]} {us / 1e3:.3f} ms"
                                  for name, us in top))
+
+
+def agreement(got, want):
+    """(share of pixels within AGREE_ABS, mean |d|, max |d|)."""
+    diff = (got - want).abs()
+    return (float((diff.amax(-1) < AGREE_ABS).float().mean()),
+            float(diff.mean()), float(diff.max()))
+
+
+def mesh_phases(tt, dev, card, assets, camera, asset_args):
+    """Phases 10-13, the triangle path; returns the K3 and K4 entries of
+    the kernels line."""
+    from tpuray_torch.apps import invrender, raypng
+    from tpuray_torch.kernels.megakernel import (
+        render_megakernel, render_megakernel_record,
+        render_megakernel_record_reference, render_megakernel_reference)
+    from tpuray_torch.meshes import mesh_benchmark_scene
+    from tpuray_torch.utils.metrics import cuda_time_ms
+
+    specs = {key: mesh_benchmark_scene(order, res) for key, (order, res) in
+             (("k3", MESH_K3), ("4k", MESH_4K), ("k4", MESH_K4))}
+    scenes = {key: tt.build_scene(spec, dev) for key, spec in specs.items()}
+    n_tris = {key: scene.num_triangles for key, scene in scenes.items()}
+
+    def inputs(key, width, height, depth, rows=None, row0=0):
+        cfg = tt.RenderConfig(width=width, height=rows or height,
+                              max_depth=depth, shadow_samples=2)
+        basis = tt.perspective_basis(camera, width, height, device=dev)
+        return tt.pack_scene(scenes[key], basis, row0), cfg, basis
+
+    def where(key, cfg, row0):
+        rows = (f" rows {row0}-{row0 + cfg.height - 1}" if row0 else "")
+        return (f"{n_tris[key]:,} triangles, {cfg.width}x{cfg.height} "
+                f"d{cfg.max_depth} ss{cfg.shadow_samples}{rows}")
+
+    # -- 10. the triangle kernel against its brute-force plain version --
+    max_err, images, results = {}, {}, []
+    for key, rows, row0 in (("k3", None, 0), ("k4", K4_SLAB[1], K4_SLAB[0])):
+        packed, cfg, _ = inputs(key, 512, 384, 3, rows, row0)
+        before = render_megakernel.launches
+        got = render_megakernel(packed, assets, cfg)
+        torch.cuda.synchronize()
+        if render_megakernel.launches != before + 1:
+            raise RuntimeError("the wrapper did not count its launch")
+        want = render_megakernel_reference(packed, assets, cfg)
+        _, recs = render_megakernel_record(packed, assets, cfg)
+        tri_nodes = int(((recs["rec"] & 0xFF) == TRI_CODE).sum())
+        if got.shape != (cfg.height, 512, 3) \
+                or not bool(torch.isfinite(got).all()):
+            raise RuntimeError("mesh kernel output is not finite or has the "
+                               "wrong shape")
+        agree, mean, max_err[key] = agreement(got, want)
+        images[key] = got
+        results.append(f"{where(key, cfg, row0)}: {agree:.6f} of pixels "
+                       f"within {AGREE_ABS}, mean|d| {mean:.3g}, max|d| "
+                       f"{max_err[key]:.3g}, {tri_nodes} triangle nodes")
+        if agree < AGREE_FRAC or mean >= MEAN_ABS or tri_nodes == 0:
+            raise RuntimeError("mesh kernel disagrees with the plain "
+                               "version: " + results[-1])
+    phase(10, "mesh kernel vs plain", "; ".join(results))
+
+    # -- 11. K5 on mesh scenes: records, replay, gradient --
+    results = []
+    for key, width, height, rows, row0 in (
+            ("k3", 128, 96, None, 0), ("k4", 512, 384, K4_SLAB[1],
+                                       K4_SLAB[0])):
+        packed, cfg, basis = inputs(key, width, height, 3, rows, row0)
+        img, rec = render_megakernel_record(packed, assets, cfg)
+        want, plain = render_megakernel_record_reference(packed, assets, cfg)
+        base = render_megakernel(packed, assets, cfg)
+        same = {k: float((rec[k] == plain[k]).all(0).float().mean())
+                for k in ("rec", "wid", "pick")}
+        ssr_err = float((rec["ssr"] - plain["ssr"]).abs().max())
+        nodes = (int(rec["max_nodes"]), int(plain["max_nodes"]))
+        base_agree, base_mean, _ = agreement(img, base)
+        plain_agree, plain_mean, _ = agreement(img, want)
+        rep = tt.replay_render(scenes[key], assets, basis, rec, cfg, row0)
+        d = (rep - img).abs()
+        results.append(
+            f"{where(key, cfg, row0)}: records equal on {same['rec']:.6f}, "
+            f"triangle ids on {same['wid']:.6f}, picks on "
+            f"{same['pick']:.6f} of pixels, ssr max|d| {ssr_err:.3g}, "
+            f"max_nodes {nodes[0]} (plain {nodes[1]}), image vs plain "
+            f"{plain_agree:.6f} within {AGREE_ABS}, vs K1 {base_agree:.6f}; "
+            f"replay vs K5 mean|d| {float(d.mean()):.3g}, max|d| "
+            f"{float(d.max()):.3g}")
+        if min(same.values()) < AGREE_FRAC or ssr_err > SSR_ABS \
+                or nodes[0] != nodes[1] or min(base_agree, plain_agree) \
+                < AGREE_FRAC or max(base_mean, plain_mean) >= MEAN_ABS \
+                or float(d.mean()) >= TRI_REPLAY_MEAN \
+                or float(d.max()) >= TRI_REPLAY_MAX:
+            raise RuntimeError("record kernel on a mesh disagrees: "
+                               + results[-1])
+    grads = {}
+    width, height = 64, 48
+    for place in (dev, torch.device("cpu")):
+        g_scene = scenes["k3"].to(place)
+        basis = tt.perspective_basis(camera, width, height, device=place)
+        cfg = tt.RenderConfig(width=width, height=height, max_depth=3,
+                              shadow_samples=2)
+        diff, rest = tt.partition(g_scene)
+        leaves = {k: v.clone().requires_grad_() for k, v in diff.items()}
+        gen = torch.Generator().manual_seed(0)
+        w = torch.rand(height, width, 3, generator=gen).to(place)
+        img = tt.render_megakernel_diff(tt.combine(leaves, rest),
+                                        assets.to(place), basis, cfg)
+        g = torch.autograd.grad((img * w).sum(), list(leaves.values()))
+        grads[place.type] = dict(zip(leaves, (x.cpu() for x in g)))
+    worst = {}
+    for name, ours in grads["cuda"].items():
+        want = grads["cpu"][name]
+        if not bool(torch.isfinite(ours).all()):
+            raise RuntimeError(f"gradient of {name} is not finite")
+        scale = max(float(want.abs().max()), 1e-3)
+        worst[name] = float((ours - want).abs().max()) / scale
+        if worst[name] > GRAD_ATOL:
+            raise RuntimeError(f"gradient of {name} on the card is "
+                               f"{worst[name]:.3g} * max|g| off the CPU's")
+    for name in ("tri_v0", "tri_v1", "tri_v2", "tri_mat.diffuse"):
+        if not float(grads["cuda"][name].abs().sum()) > 0:
+            raise RuntimeError(f"no gradient reaches {name}")
+    tri_worst = max(v for k, v in worst.items() if k.startswith("tri_"))
+    results.append(
+        f"gradient {where('k3', cfg, 0)} on the card vs the CPU: worst leaf "
+        f"max|d| {max(worst.values()):.3g} * max|g|, worst triangle leaf "
+        f"{tri_worst:.3g} (bar {GRAD_ATOL}), all finite, tri_v0/1/2 and "
+        "tri_mat.diffuse non-zero")
+    phase(11, "mesh record kernel, replay and gradient", "; ".join(results))
+
+    # -- 12. the raypng path on mesh archives --
+    launches, results = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for key in ("k3", "k4"):
+            path = os.path.join(tmp, f"mesh_{key}.map")
+            tt.dump_scene(path, specs[key])
+            out = os.path.join(tmp, f"mesh_{key}.png")
+            argv = ["--scene", path, "--width", "512", "--height", "384",
+                    "--depth", "3", "--device", "cuda", "--selfcheck",
+                    "--out", out] + asset_args
+            render_megakernel.launches = 0
+            render_megakernel_record.launches = 0
+            t0 = time.perf_counter()
+            res = raypng.main(argv)
+            wall = time.perf_counter() - t0
+            launches[key] = render_megakernel.launches
+            if launches[key] != 1 or render_megakernel_record.launches:
+                raise RuntimeError(f"raypng on the {key} mesh archive made "
+                                   f"{launches[key]} kernel launches")
+            rgb = res["rgb"]
+            if rgb.device.type != "cuda" or rgb.shape != (384, 512, 3) \
+                    or not bool(torch.isfinite(rgb).all()):
+                raise RuntimeError("raypng's mesh image is not a finite "
+                                   "384x512x3 CUDA tensor")
+            if not (tt.read_png(out) == res["image"]).all():
+                raise RuntimeError("the written PNG differs from the render")
+            # the archive stores f32 vertices: the same image as phase 10's
+            row0 = 0 if key == "k3" else K4_SLAB[0]
+            agree, mean, _ = agreement(
+                rgb[row0:row0 + images[key].shape[0]], images[key])
+            results.append(f"{n_tris[key]:,} triangles: 512x384 d3, "
+                           f"{launches[key]} kernel launch, {res['report']}; "
+                           f"whole run {wall:.3f} s; phase 10's rows agree "
+                           f"on {agree:.6f} of pixels")
+            if agree < AGREE_FRAC or mean >= MEAN_ABS:
+                raise RuntimeError("raypng's mesh image differs from the "
+                                   "kernel's: " + results[-1])
+        steps = MESH_INVRENDER_STEPS
+        argv = ["--scene", os.path.join(tmp, "mesh_k3.map"), "--steps",
+                str(steps), "--width", "128", "--height", "96", "--depth",
+                "3", "--device", "cuda", "--every", "5", "--checkpoint",
+                os.path.join(tmp, "mesh.pt")] + asset_args
+        render_megakernel.launches = 0
+        render_megakernel_record.launches = 0
+        res = invrender.main(argv)
+        k5_launches = render_megakernel_record.launches
+        losses = res["losses"]
+        results.append(
+            f"invrender on the {n_tris['k3']:,}-triangle archive: 128x96 d3 "
+            f"ss0, {steps} steps, {k5_launches} record kernel launches, "
+            f"loss {losses[0]:.5f} -> {losses[-1]:.5f}, "
+            f"{res['train_seconds'] / res['steps'] * 1e3:.1f} ms per step "
+            "(host clock, first step included)")
+        if k5_launches < steps + 1 or render_megakernel.launches \
+                or not losses[-1] < losses[0] \
+                or not all(bool(torch.isfinite(v).all())
+                           for v in res["params"].values()):
+            raise RuntimeError("invrender on a mesh archive failed: "
+                               + results[-1])
+    phase(12, "raypng and invrender on mesh archives", "; ".join(results))
+
+    # -- 13. times and bounds --
+    entries, walked, results = {}, {}, []
+    for key, width, height, depth, slab in (
+            ("k3", 512, 384, 3, None), ("4k", 3840, 2160, 6, SLAB_4K),
+            ("k4", 512, 384, 3, K4_SLAB)):
+        packed, cfg, _ = inputs(key, width, height, depth)
+        kernel_ms = cuda_time_ms(lambda: render_megakernel(packed, assets,
+                                                           cfg))[0]
+        walks = walked[key] = TreeSearch(packed.tris)
+        img = render_megakernel_reference(packed, assets, cfg,
+                                          tri_search=walks)
+        agree, mean, _ = agreement(render_megakernel(packed, assets, cfg),
+                                   img)
+        if agree < AGREE_FRAC or mean >= MEAN_ABS:
+            raise RuntimeError(f"the tree search disagrees with the kernel "
+                               f"({agree:.6f} within {AGREE_ABS})")
+        _, recs = render_megakernel_record(packed, assets, cfg)
+        bound_ms, bound_by, counts = bound(recs, packed, cfg, False, walks)
+        del recs, img
+        text = (f"{where(key, cfg, 0)}: kernel {kernel_ms:.4f} ms "
+                f"({width * height / kernel_ms / 1e3:.2f} Mrays/s), bound "
+                f"{bound_ms:.5f} ms ({bound_by}; {counts})")
+        if slab is None:
+            plain_ms = cuda_time_ms(lambda: render_megakernel_reference(
+                packed, assets, cfg), warmup=0, iters=1)[0]
+            text += f", plain {plain_ms:.1f} ms (one run)"
+        else:
+            spacked, scfg, _ = inputs(key, width, height, depth, slab[1],
+                                      slab[0])
+            plain_ms = cuda_time_ms(lambda: render_megakernel_reference(
+                spacked, assets, scfg), warmup=0, iters=1)[0]
+            slab_ms = cuda_time_ms(lambda: render_megakernel(
+                spacked, assets, scfg))[0]
+            text += (f"; on {where(key, scfg, slab[0])}: plain "
+                     f"{plain_ms:.1f} ms (one run), kernel {slab_ms:.4f} ms")
+        results.append(text)
+        entries[key] = (kernel_ms, plain_ms, bound_ms, bound_by)
+        torch.cuda.empty_cache()
+    # K5 on the K3 cell: the same walks, plus the records
+    packed, cfg, _ = inputs("k3", 512, 384, 3)
+    k5_ms = cuda_time_ms(lambda: render_megakernel_record(packed, assets,
+                                                          cfg))[0]
+    k5_plain_ms = cuda_time_ms(lambda: render_megakernel_record_reference(
+        packed, assets, cfg), warmup=0, iters=1)[0]
+    _, recs = render_megakernel_record(packed, assets, cfg)
+    k5_bound, k5_by, _ = bound(recs, packed, cfg, True, walked["k3"])
+    results.append(f"K5 {where('k3', cfg, 0)}: {k5_ms:.4f} ms, plain "
+                   f"{k5_plain_ms:.1f} ms (one run), bound {k5_bound:.5f} ms "
+                   f"({k5_by})")
+    phase(13, "mesh timing", f"{card}: " + "; ".join(results))
+
+    def entry(key, name, err):
+        kernel_ms, plain_ms, bound_ms, bound_by = entries[key]
+        return {"name": name, "route": "cuda",
+                "source": "tpuray_torch/kernels/csrc/megakernel.cu",
+                "replaces": "tpuray/kernels/pallas_trace.py:"
+                            + ("1196" if key == "k3" else "816"),
+                "launches": launches[key], "max_abs_err": err,
+                "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
+    k3 = entry("k3", "megakernel_triangles_resident", max_err["k3"])
+    k3["shape"] = f"512x384 d3 ss2, {n_tris['k3']:,} triangles"
+    k4 = entry("k4", "megakernel_triangles_streamed", max_err["k4"])
+    k4["shape"] = (f"512x384 d3 ss2, {n_tris['k4']:,} triangles; plain_ms "
+                   f"on rows {K4_SLAB[0]}-{sum(K4_SLAB) - 1}")
+    return k3, k4
 
 
 def write_inputs(tt, tmp, tex, sky):
@@ -535,6 +951,11 @@ def main():
                                   f"{width}x{height} d3 ss0"))
     phase(9, "timing", f"{card}: " + "; ".join(texts))
 
+    with tempfile.TemporaryDirectory() as tmp:
+        asset_args = [] if mounted else write_inputs(tt, tmp, tex, sky)[2:]
+        k3_entry, k4_entry = mesh_phases(tt, dev, card, assets, camera,
+                                         asset_args)
+
     print(json.dumps({"kernels": [{
         "name": "megakernel",
         "route": "cuda",
@@ -548,7 +969,7 @@ def main():
         "bound_by": k1_by,
         "library_ms": None,
         "shape": "800x600 d15 ss2",
-    }, {
+    }, k3_entry, k4_entry, {
         "name": "megakernel_record",
         "route": "cuda",
         "source": "tpuray_torch/kernels/csrc/megakernel.cu",

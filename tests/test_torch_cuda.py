@@ -4,6 +4,7 @@ PyTorch versions, the gradient through ``render_megakernel_diff`` against
 the same on the CPU, and the wrappers' refusals.  Every test needs an
 NVIDIA GPU and the CUDA toolkit and skips without them (marker ``cuda``);
 on the card run ``python -m pytest tests/test_torch_cuda.py -q``."""
+import dataclasses
 import shutil
 
 import numpy as np
@@ -15,6 +16,7 @@ from tpuray_torch.kernels import build
 from tpuray_torch.kernels.megakernel import (
     MAX_DEPTH_CAP, pack_scene, render_megakernel, render_megakernel_record,
     render_megakernel_record_reference, render_megakernel_reference)
+from tpuray_torch.kernels.triblocks import TRI_MAX_TRIANGLES
 
 pytestmark = pytest.mark.cuda
 
@@ -126,6 +128,59 @@ def test_diff_backward_on_the_card_matches_the_cpu(cuda):
             assert float((ours - want).abs().max()) <= 2e-2 * scale, name
 
 
+def _mesh_inputs(device, width, height, depth=3):
+    from tpuray_torch.meshes import mesh_benchmark_scene
+
+    scene = tt.build_scene(mesh_benchmark_scene(2, (16, 8)), device)
+    basis = tt.perspective_basis(tt.Camera(*GOLDEN_CAMERA), width, height,
+                                 device=device)
+    assets = tt.assets_from_arrays(*tt.random_asset_arrays(0, 256, 256),
+                                   device)
+    cfg = tt.RenderConfig(width=width, height=height, max_depth=depth)
+    return scene, basis, assets, cfg
+
+
+def test_mesh_kernels_match_plain_version(cuda):
+    """The triangle walk (K3/K4) and its records against the brute-force
+    plain version: 576 triangles at 256x192 depth 3."""
+    scene, basis, assets, cfg = _mesh_inputs(cuda, 256, 192)
+    packed = pack_scene(scene, basis)
+    got = render_megakernel(packed, assets, cfg)
+    want = render_megakernel_reference(packed, assets, cfg)
+    diff = (got - want).abs()
+    assert (diff.amax(-1) < 1e-3).float().mean() >= 0.999
+    assert float(diff.mean()) < 1e-4
+    img, rec = render_megakernel_record(packed, assets, cfg)
+    _, plain = render_megakernel_record_reference(packed, assets, cfg)
+    assert torch.equal(img, got)
+    assert bool(((rec["rec"] & 0xFF) == 126).any())
+    for key in ("rec", "wid", "pick"):
+        same = (rec[key] == plain[key]).all(0).float().mean()
+        assert float(same) >= 0.999, key
+    assert float((rec["ssr"] - plain["ssr"]).abs().max()) <= 1e-5
+
+
+def test_mesh_diff_backward_on_the_card_matches_the_cpu(cuda):
+    """Triangle vertices and materials included, at 2e-2 * max|g|."""
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        scene, basis, assets, cfg = _mesh_inputs(dev, 64, 48)
+        diff, rest = tt.partition(scene)
+        leaves = {k: v.clone().requires_grad_() for k, v in diff.items()}
+        w = torch.from_numpy(np.random.default_rng(0).uniform(
+            size=(48, 64, 3)).astype(np.float32)).to(dev)
+        img = tt.render_megakernel_diff(tt.combine(leaves, rest), assets,
+                                        basis, cfg)
+        g = torch.autograd.grad((img * w).sum(), list(leaves.values()))
+        grads[dev.type] = {k: v.cpu() for k, v in zip(leaves, g)}
+    assert float(grads["cuda"]["tri_v0"].abs().sum()) > 0
+    for name, ours in grads["cuda"].items():
+        want = grads["cpu"][name]
+        assert torch.isfinite(ours).all(), name
+        scale = max(float(want.abs().max()), 1e-3)
+        assert float((ours - want).abs().max()) <= 2e-2 * scale, name
+
+
 def test_record_wrapper_refusals_on_the_card(cuda):
     check_record_refusals(cuda)
 
@@ -139,10 +194,26 @@ def crowded_spec(n_spheres=0, n_lights=0):
     return spec
 
 
+def many_triangles(scene, n):
+    """``scene`` with ``n`` copies of one triangle, made without a spec or
+    a sort, so that a scene past the triangle cap stays cheap."""
+    one = tt.build_scene(
+        tt.SceneSpec(triangles=[tt.TriangleSpec((0, 0, 0), (1, 0, 0),
+                                                (0, 1, 0), tt.PLASTIC)]),
+        scene.device)
+    mat = tt.Materials(**{f.name: getattr(one.tri_mat, f.name).expand(
+        n, *getattr(one.tri_mat, f.name).shape[1:])
+        for f in dataclasses.fields(tt.Materials)})
+    return dataclasses.replace(scene, tri_v0=one.tri_v0.expand(n, 3),
+                               tri_v1=one.tri_v1.expand(n, 3),
+                               tri_v2=one.tri_v2.expand(n, 3), tri_mat=mat)
+
+
 def check_record_refusals(device):
     """More than 64 solids or 62 lights (the hit code's ranges), record
-    slots outside [1, 64] (6-bit parent slots), triangles and bilinear
-    filtering (not ported yet) are refused; the caps themselves work."""
+    slots outside [1, 64] (6-bit parent slots), more than 524,288 triangles
+    (the cap of the triangle path) and bilinear filtering (not ported yet)
+    are refused; the caps themselves work."""
     basis = tt.perspective_basis(tt.Camera(*GOLDEN_CAMERA), 8, 4,
                                  device=device)
     assets = tt.assets_from_arrays(*tt.random_asset_arrays(0), device)
@@ -165,10 +236,11 @@ def check_record_refusals(device):
         _, records = render_megakernel_record(
             packed, assets, cfg.replace(record_slots=slots))
         assert records["rec"].shape == (slots, 32)
-    spec = tt.canonical_scene_spec()
-    spec.triangles.append(tt.TriangleSpec((0, 0, 0), (1, 0, 0), (0, 1, 0),
-                                          tt.PLASTIC))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pack_scene(tt.build_scene(spec, device), basis)
+    scene = tt.build_scene(tt.canonical_scene_spec(), device)
+    with pytest.raises(ValueError, match="524,288"):
+        pack_scene(many_triangles(scene, TRI_MAX_TRIANGLES + 1), basis)
+    packed = pack_scene(many_triangles(scene, 100), basis)
+    _, records = render_megakernel_record(packed, assets, cfg)
+    assert records["wid"].shape == (cfg.resolved_record_slots(), 32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.RenderConfig(filter="bilinear", record_slots=8)

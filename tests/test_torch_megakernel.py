@@ -31,6 +31,8 @@ from tpuray_torch.kernels import primitives as pr
 from tpuray_torch.kernels.megakernel import (MAX_DEPTH_CAP, pack_scene,
                                              render_megakernel,
                                              render_megakernel_reference)
+from tpuray_torch.kernels.triblocks import TRI_MAX_TRIANGLES
+from test_torch_cuda import many_triangles
 
 AGREE_ABS = 1e-3
 AGREE_FRAC = 0.999
@@ -192,13 +194,14 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
 
 
 def test_triangles_and_bilinear_are_refused():
-    spec = tt.canonical_scene_spec()
-    spec.triangles.append(tt.TriangleSpec((0, 0, 0), (1, 0, 0), (0, 1, 0),
-                                          tt.PLASTIC))
-    scene = tt.build_scene(spec, "cpu")
+    """More triangles than the cap (the JAX kernel's 524,288, above which
+    the JAX package falls back to a tracer the port does not have yet)
+    raise before any table is built; bilinear filtering is not ported."""
+    scene = tt.build_scene(tt.canonical_scene_spec(), "cpu")
     basis = tt.perspective_basis(_camera_pair()[1], 8, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pack_scene(scene, basis)
+    with pytest.raises(ValueError, match="524,288"):
+        pack_scene(many_triangles(scene, TRI_MAX_TRIANGLES + 1), basis)
+    assert pack_scene(many_triangles(scene, 1), basis).tris.n == 1
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.RenderConfig(filter="bilinear")
 

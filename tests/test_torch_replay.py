@@ -32,6 +32,8 @@ import tpuray_torch as tt
 from tpuray_torch.kernels.megakernel import (pack_scene,
                                              render_megakernel_record)
 from tpuray_torch.kernels.replay import replay_render
+from tpuray_torch.kernels.triblocks import TRI_MAX_TRIANGLES
+from test_torch_cuda import many_triangles
 from test_torch_megakernel import _assets_pair, _camera_pair
 from test_torch_record import picks_in_event_order
 
@@ -81,12 +83,9 @@ def test_replay_refuses_what_it_cannot_replay():
     scene, assets, basis, cfg = port_inputs(8, 8, 2, 0)
     _, records = render_megakernel_record(pack_scene(scene, basis), assets,
                                           cfg)
-    spec = tt.canonical_scene_spec()
-    spec.triangles.append(tt.TriangleSpec((0, 0, 0), (1, 0, 0), (0, 1, 0),
-                                          tt.PLASTIC))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        replay_render(tt.build_scene(spec, "cpu"), assets, basis, records,
-                      cfg)
+    with pytest.raises(ValueError, match="524,288"):
+        replay_render(many_triangles(scene, TRI_MAX_TRIANGLES + 1), assets,
+                      basis, records, cfg)
     crowded = dataclasses.replace(
         scene, light_origin=torch.zeros(63, 3), light_radius=torch.ones(63),
         light_intensity=torch.ones(63), light_rgb=torch.ones(63, 3))

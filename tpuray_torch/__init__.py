@@ -9,6 +9,7 @@ Layer map (reference -> here):
   src/cl/*.cl (device kernels)   -> tpuray_torch.kernels (CUDA + plain torch)
   src/cpu_ray.{h,c} (camera/png) -> tpuray_torch.camera, tpuray_torch.io
   src/cpu_obj.{h,c} (scene/ser.) -> tpuray_torch.scene, tpuray_torch.sceneio
+  (no reference analog: meshes)  -> tpuray_torch.meshes
   raypng.c / scene_dump.c (apps) -> tpuray_torch.apps.{raypng,scenegen}
   (no reference analog: gradients) -> tpuray_torch.diff, kernels.replay,
                                       apps.invrender, utils.checkpoint

@@ -96,8 +96,11 @@ def load_library() -> KernelLibrary:
     log = _compile(path) if not os.path.exists(path) else ""
     lib = ctypes.CDLL(path)
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tris = [p, p, p, i, i,     # triangle geom, attr, node, count, levels
+            p, i, i]           # nodes per level (host), block, fanout
     lib.tpuray_megakernel.argtypes = [
         p, i, i, i,            # scene, n_spheres, n_planes, n_lights
+        *tris,
         p, i, i,               # textures, tex_h, tex_w
         p, i, i,               # skybox, sky_h, sky_w
         i, i, i, i,            # width, height, max_depth, shadow_samples
@@ -106,12 +109,13 @@ def load_library() -> KernelLibrary:
     lib.tpuray_megakernel.restype = i
     lib.tpuray_megakernel_record.argtypes = [
         p, i, i, i,            # scene, n_spheres, n_planes, n_lights
+        *tris,
         p, i, i, i,            # textures, n_textures, tex_h, tex_w
         p, i, i,               # skybox, sky_h, sky_w
         i, i, i, i,            # width, height, max_depth, shadow_samples
         fl, fl, fl,            # epsilon, transparent_through, default_n
         i,                     # record slots
-        p, p, p, p, p,         # out, rec, ssr, pick, max_nodes
+        p, p, p, p, p, p,      # out, rec, wid, ssr, pick, max_nodes
         p]                     # stream
     lib.tpuray_megakernel_record.restype = i
     lib.tpuray_error_string.argtypes = [i]

@@ -2,13 +2,24 @@
 // pixel, start to finish.
 //
 // Replaces: tpuray/kernels/pallas_trace.py, _make_kernel.kernel (:659) with
-// no triangles and nearest filtering, launched by _pallas_forward (:2314) on
-// 16x128 pixel tiles, plus the XLA texel-event resolve _resolve_events
-// (:2468) that followed it.  Two instantiations of one body:
-//   megakernel<false>  K1, the base configuration (render_pallas :2452);
-//   megakernel<true>   K5, record mode (render_pallas_record :2665): the same
-//                      image plus one record per DFS node for the gradient's
-//                      replay (megakernel.py render_megakernel_record).
+// nearest filtering, launched by _pallas_forward (:2314) on 16x128 pixel
+// tiles, plus the XLA texel-event resolve _resolve_events (:2468) that
+// followed it.  Instantiations of one body, megakernel<RECORD, TRIS>:
+//   <false, false>  K1, the base configuration (render_pallas :2452);
+//   <false, true>   K3 and K4, with a triangle table (triangles resident in
+//                   VMEM up to 32,768, or streamed from HBM up to 524,288:
+//                   tri_closest :1196, tri_feeler_multi :1325,
+//                   tri_pair_sum :931, the culls :988-1194, the DMA blocks
+//                   :816-862);
+//   <true, *>       K5, record mode (render_pallas_record :2665): the same
+//                   image plus one record per DFS node for the gradient's
+//                   replay (megakernel.py render_megakernel_record),
+//                   triangle hits as TRI_CODE with the winner's id.
+// The host picks TRIS from the scene's triangle count, so that a scene
+// without triangles runs code that has no triangle walk in it: compiled in,
+// the walk took stack frame and spills (K1 79 -> 80 registers, 800 -> 928
+// bytes, 24 B of spill stores) and 3-8% of K1's and K5's time on scenes
+// that never ran it (PERF.md, PR 3).
 //
 // What bounds it on this card: neither device-memory bytes nor a matrix
 // unit.  The scene is ~0.6 KB and every thread of a warp reads the same
@@ -19,11 +30,28 @@
 // shadow sample 6 occluder tests.  The limit is issue rate and divergence:
 // pixels of one warp that take different paths through the reflect /
 // refract tree serialise, and a warp runs as long as its deepest pixel.
-// For the base instantiation ptxas gives 80 registers and an 800-byte stack
-// frame (the ray stack, in local memory) with no spills.  The record
-// instantiation adds a parent code per stack level, and per node one i32
-// record, one i32 texel pick and nl f32 shadow ratios, stored slot-major
-// ([slot, pixel]) so that the threads of a warp write adjacent words.
+// For K1 ptxas gives 79 registers and an 800-byte stack frame (the ray
+// stack, in local memory) with no spills.  The record instantiations add a
+// parent code per stack level, and per node one i32 record, one i32 winner
+// id, one i32 texel pick and nl f32 shadow ratios, stored slot-major
+// ([slot, pixel]) so that the threads of a warp write adjacent words (K5:
+// 80 registers, 864 bytes, no spills).
+//
+// Triangles (K3/K4 as one path): the TPU kernel ran Moller-Trumbore as
+// bilinear forms on the MXU at bf16x3 and streamed 256-triangle blocks
+// through VMEM past 32,768 triangles; here the tables (triblocks.py) sit in
+// device memory, the hot part in L2 (50 MB: 524,288 triangles take 25 MB of
+// geometry), and each thread walks an implicit AABB tree (the whole mesh,
+// unions of 8 nodes, blocks of 16 Morton-ordered triangles) with a slab
+// test per node and an f32 Moller-Trumbore test per triangle of a block it
+// enters, read through __ldg as three float4.  The closest-hit walk skips
+// every box beyond max(t_light, min(best solid, best triangle)) (:1219),
+// which shrinks as hits land; a shadow feeler stops at its first opaque
+// triangle.  What bounds it is again issue rate and divergence, now of the
+// walk: the rays of a warp enter different boxes and the warp runs the
+// union of their paths.  With the walk inlined ptxas gives 80 registers and
+// a 928-byte frame with 24 B of spill stores (1056 bytes, 164 B in record
+// mode).  Wider trees, warp-coherent traversal or a real BVH are later work.
 //
 // Why a thread per pixel: the TPU kernel's 16x128 tiles, one-hot selects and
 // VMEM stacks exist because the TPU has vector registers and no gather.  A
@@ -66,12 +94,32 @@
 #define BLOCK_Y 16
 
 // record codes (pallas_trace.py:2102-2148): solid index (spheres first),
-// LIGHT_CODE + l for light l, MISS_CODE for the sky; parent byte = 6-bit
-// parent slot | PC_REFRACT for the refracted child | PC_VALID
+// TRI_CODE for a triangle, LIGHT_CODE + l for light l, MISS_CODE for the
+// sky; parent byte = 6-bit parent slot | PC_REFRACT for the refracted child
+// | PC_VALID
 #define LIGHT_CODE 64
+#define TRI_CODE 126
 #define MISS_CODE 127
 #define PC_VALID 0x80
 #define PC_REFRACT 0x40
+
+// ---- triangle tables (triblocks.py build_tri_tables) ----
+#define TRI_MAX_LEVELS 8
+#define ATTR_STRIDE 16      // unit face normal3, material13
+#define TRI_DET_EPS 1e-7f   // primitives.intersect_triangle's |det| floor
+#define TRI_THROUGH 0.8f    // per transparent triangle (trace.py:385)
+
+struct Tris {
+  int n;                    // triangles; 0: none
+  int levels;               // levels of the AABB tree, root first
+  int block;                // triangles per leaf block
+  int fanout;               // children per node above the blocks
+  const float4* geom;       // [n][3]: (v0, transparent), (e1, 0), (e2, 0)
+  const float* attr;        // [n][ATTR_STRIDE]
+  const float4* node;       // [nodes][2]: (lo, 0), (hi, 0), levels in order
+  int off[TRI_MAX_LEVELS];  // first node of each level
+  int cnt[TRI_MAX_LEVELS];  // nodes of each level
+};
 
 // Outputs of the record instantiation (all null in the base one).  Every
 // element is written by the kernel, unused slots included.
@@ -79,6 +127,7 @@ struct Records {
   int krec;        // record slots per pixel
   int sky_base;    // texel picks index the textures, then the sky from here
   int* rec;        // [krec, n_pix] code | parent byte << 8; -1 = no node
+  int* wid;        // [krec, n_pix] winning triangle id; -1 = not a triangle
   float* ssr;      // [krec, nl, n_pix] soft-shadow ratio; 0 off solid hits
   int* pick;       // [krec, n_pix] texel the node fetched; -1 = none
   int* max_nodes;  // [1] image-wide max of the true per-pixel node count
@@ -107,6 +156,9 @@ __device__ __forceinline__ V3 add(V3 a, V3 b) { return v3(a.x + b.x, a.y + b.y, 
 __device__ __forceinline__ V3 sub(V3 a, V3 b) { return v3(a.x - b.x, a.y - b.y, a.z - b.z); }
 __device__ __forceinline__ V3 scale(V3 a, float s) { return v3(a.x * s, a.y * s, a.z * s); }
 __device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x);
+}
 
 // max(x, lo) that lets NaN through, as jnp.maximum and torch.clamp do
 __device__ __forceinline__ float max_nan(float x, float lo) { return x < lo ? lo : x; }
@@ -146,6 +198,132 @@ __device__ __forceinline__ bool plane_t(V3 normal, V3 point, V3 p, V3 q, float& 
   return b != 0.0f && t > 0.0f;
 }
 
+// Moller-Trumbore on triangle g (primitives.intersect_triangle_edges, the
+// same operations in the same order): double-faced, |det| <= 1e-7 rejected
+// on the unnormalised det, u >= 0, v >= 0, u + v <= 1, t > 0.  The early
+// returns reject only what the full predicate rejects (u > 1 with v >= 0
+// gives u + v > 1 in f32 too).
+__device__ __forceinline__ bool tri_t(const float4* g, V3 o, V3 d, float& t, bool& transp) {
+  const float4 a = __ldg(g), b = __ldg(g + 1), c = __ldg(g + 2);
+  const V3 e1 = v3(b.x, b.y, b.z), e2 = v3(c.x, c.y, c.z);
+  const V3 pvec = cross(d, e2);
+  const float det = dot(e1, pvec);
+  if (!(fabsf(det) > TRI_DET_EPS)) return false;
+  const float inv_det = 1.0f / det;
+  const V3 tvec = sub(o, v3(a.x, a.y, a.z));
+  const float u = dot(tvec, pvec) * inv_det;
+  if (!(u >= 0.0f) || u > 1.0f) return false;
+  const V3 qvec = cross(tvec, e1);
+  const float v = dot(d, qvec) * inv_det;
+  if (!(v >= 0.0f) || !(u + v <= 1.0f)) return false;
+  t = dot(e2, qvec) * inv_det;
+  transp = a.w > 0.5f;
+  return t > 0.0f;
+}
+
+// Does the segment [0, bound] of the ray (o, 1/d) meet box k?  The boxes
+// are grown on the host (triblocks.AABB_PAD), so that rounding here never
+// rejects a box whose triangle tri_t hits.
+__device__ __forceinline__ bool box_hit(const float4* node, int k, V3 o, V3 inv, float bound) {
+  const float4 lo = __ldg(node + 2 * k), hi = __ldg(node + 2 * k + 1);
+  float t0 = (lo.x - o.x) * inv.x, t1 = (hi.x - o.x) * inv.x;
+  float tmn = fmaxf(0.0f, fminf(t0, t1)), tmx = fminf(bound, fmaxf(t0, t1));
+  t0 = (lo.y - o.y) * inv.y;
+  t1 = (hi.y - o.y) * inv.y;
+  tmn = fmaxf(tmn, fminf(t0, t1));
+  tmx = fminf(tmx, fmaxf(t0, t1));
+  t0 = (lo.z - o.z) * inv.z;
+  t1 = (hi.z - o.z) * inv.z;
+  tmn = fmaxf(tmn, fminf(t0, t1));
+  tmx = fminf(tmx, fmaxf(t0, t1));
+  return tmn <= tmx;
+}
+
+// 1/x with near-zero components clamped to 1e-12 (pallas_trace.py tri_inv3),
+// which only widens a slab
+__device__ __forceinline__ float safe_inv(float x) { return 1.0f / (fabsf(x) < 1e-12f ? 1e-12f : x); }
+
+// Walk the AABB tree depth first, children in order, so blocks and their
+// triangles come in id order; a node whose box the segment [0, bound()]
+// misses is skipped with its subtree.  leaf(first, last) tests triangles
+// [first, last) and returns true to stop the walk.  The tree is implicit
+// (child j of node i is node i * fanout + j of the next level), so the walk
+// needs no stack: after a leaf or a miss it climbs while at a last child,
+// then steps to the next sibling.
+template <class Bound, class Leaf>
+__device__ __forceinline__ void tri_walk(const Tris& T, V3 o, V3 d, Bound bound, Leaf leaf) {
+  const V3 inv = v3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
+  const int last = T.levels - 1;
+  int l = 0, i = 0;
+  for (;;) {
+    if (box_hit(T.node, T.off[l] + i, o, inv, bound())) {
+      if (l < last) {
+        ++l;
+        i *= T.fanout;
+        continue;
+      }
+      const int first = i * T.block;
+      if (leaf(first, min(first + T.block, T.n))) return;
+    }
+    while (l > 0 && (i % T.fanout == T.fanout - 1 || i + 1 == T.cnt[l])) {
+      i /= T.fanout;
+      --l;
+    }
+    if (l == 0) return;
+    ++i;
+  }
+}
+
+// Closest triangle and light occlusion of the ray (o, d) (trace.py:433-488):
+// tbest/wbest the closest hit, the lowest id among equal t; lblock set by an
+// opaque triangle at t <= lt.  Boxes beyond max(lt, min(bt, tbest)) cannot
+// change either answer (lt no longer counts once the light is blocked).
+__device__ __forceinline__ void tri_closest(const Tris& T, V3 o, V3 d, float lt, float bt,
+                                            float& tbest, int& wbest, bool& lblock) {
+  const float lt_seg = isfinite(lt) ? lt : 0.0f;
+  tri_walk(
+      T, o, d,
+      [&] {
+        const float b = fminf(bt, tbest);
+        return lblock ? b : fmaxf(lt_seg, b);
+      },
+      [&](int first, int last) {
+        for (int k = first; k < last; ++k) {
+          float t;
+          bool transp;
+          if (!tri_t(T.geom + 3 * k, o, d, t, transp)) continue;
+          if (t < tbest) {
+            tbest = t;
+            wbest = k;
+          }
+          if (!transp && t <= lt) lblock = true;
+        }
+        return false;
+      });
+}
+
+// Shadow feeler from p along q (trace.py:342-386): true at the first opaque
+// triangle before tmax; counts the transparent ones crossed until then.
+__device__ __forceinline__ bool tri_feeler(const Tris& T, V3 p, V3 q, float tmax, int& crossed) {
+  bool blocked = false;
+  tri_walk(
+      T, p, q, [&] { return tmax; },
+      [&](int first, int last) {
+        for (int k = first; k < last; ++k) {
+          float t;
+          bool transp;
+          if (!tri_t(T.geom + 3 * k, p, q, t, transp) || !(t < tmax)) continue;
+          if (!transp) {
+            blocked = true;
+            return true;
+          }
+          ++crossed;
+        }
+        return false;
+      });
+  return blocked;
+}
+
 // xorshift32 (primitives.cl:116-125); the sample is built as the TPU kernel
 // builds it (pallas_trace.py:499): int32 bits -> f32, + 2^32 if negative,
 // then / 2^31 * 2, i.e. [0, 4).
@@ -179,16 +357,18 @@ __device__ __forceinline__ void map_to_cube(V3 d, int face, int& u, int& v) {
   v = sv + __float2int_rz(fv * (float)face);
 }
 
-// One node's record: its code, its parent byte and texel pick.
+// One node's record: its code, its parent byte, triangle id and texel pick.
 __device__ __forceinline__ void write_record(const Records& R, int slot, size_t pix,
-                                             size_t n_pix, int code, int pcode, int pick) {
+                                             size_t n_pix, int code, int pcode, int wid,
+                                             int pick) {
   R.rec[slot * n_pix + pix] = code | (pcode << 8);
+  R.wid[slot * n_pix + pix] = wid;
   R.pick[slot * n_pix + pix] = pick;
 }
 
-template <bool RECORD>
+template <bool RECORD, bool TRIS>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
-megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
+megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
            const uint8_t* __restrict__ tex, int tex_h, int tex_w,
            const uint8_t* __restrict__ sky, int sky_h, int sky_w,
            int width, int height, int max_depth, int shadow_samples,
@@ -270,6 +450,18 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
         float tm = h ? t : INF;
         if (tm < bt) { bt = tm; bwin = ns + i; }
       }
+      // --- triangles (trace.py:462-466): analytic solids win ties ---
+      int wid = -1;
+      if constexpr (TRIS) {
+        float tt = INF;
+        int w = -1;
+        tri_closest(T, o, d, lt, bt, tt, w, lblock);
+        if (tt < bt) {
+          bt = tt;
+          bwin = TRI_CODE;
+          wid = w;
+        }
+      }
 
       if (isfinite(lt) && !lblock) {
         // light hit: rgb * I / pi, no distance term (primitives.cl:287)
@@ -278,7 +470,7 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
         cx2 = v3(c.x + f * (__ldg(L + 5) * s), c.y + f * (__ldg(L + 6) * s),
                  c.z + f * (__ldg(L + 7) * s));
         if (rec_on) {
-          write_record(R, slot, pix, n_pix, LIGHT_CODE + lwin, pcode, -1);
+          write_record(R, slot, pix, n_pix, LIGHT_CODE + lwin, pcode, -1, -1);
           for (int i = 0; i < nl; ++i) R.ssr[((size_t)slot * nl + i) * n_pix + pix] = 0.0f;
         }
       } else if (!isfinite(bt)) {
@@ -292,7 +484,8 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
         cx2 = v3(c.x + w * (float)px[0], c.y + w * (float)px[1],
                  c.z + w * (float)px[2]);
         if (rec_on) {
-          write_record(R, slot, pix, n_pix, MISS_CODE, pcode, R.sky_base + sy * sky_w + sx);
+          write_record(R, slot, pix, n_pix, MISS_CODE, pcode, -1,
+                       R.sky_base + sy * sky_w + sx);
           for (int i = 0; i < nl; ++i) R.ssr[((size_t)slot * nl + i) * n_pix + pix] = 0.0f;
         }
       } else {
@@ -300,8 +493,16 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
         V3 hp = add(o, scale(d, bt));
         V3 n;
         const float* M;
-        bool is_plane = bwin >= ns;
-        if (!is_plane) {
+        const bool is_tri = TRIS && bwin == TRI_CODE;
+        const bool is_plane = !is_tri && bwin >= ns;
+        if (is_tri) {
+          // the winner's face normal, flipped against the ray
+          // (trace.py:479-484)
+          const float* A = T.attr + ATTR_STRIDE * wid;
+          n = load3(A);
+          if (dot(n, d) > 0.0f) n = v3(-n.x, -n.y, -n.z);
+          M = A + 3;
+        } else if (!is_plane) {
           const float* S = SPH + SPHERE_STRIDE * bwin;
           n = normalize(sub(hp, load3(S)));
           M = S + 4;
@@ -313,6 +514,8 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
         const float ambient = __ldg(M + M_AMBIENT);
         const float tex_id = __ldg(M + M_TEXTURE_ID);
         int pick = -1;
+        // a textured triangle is flat-shaded: texels are fetched for plane
+        // hits only (pallas_trace.py:1832-1837, ROADMAP C6)
         if (is_plane && tex_id > -0.5f) {
           // textured plane: texel * f * ambient (primitives.cl:217-259)
           V3 b0;
@@ -342,7 +545,7 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
                    c.z + amb * __ldg(M + 2));
         }
         V3 ph = add(hp, scale(n, eps));  // eps-offset hit (primitives.cl:350)
-        if (rec_on) write_record(R, slot, pix, n_pix, bwin, pcode, pick);
+        if (rec_on) write_record(R, slot, pix, n_pix, bwin, pcode, wid, pick);
 
         // --- per-light soft-shadow Phong (raytracing.cl:87-136) ---
         const float diffuse = __ldg(M + M_DIFFUSE);
@@ -394,6 +597,13 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
               const float* P = PL + PLANE_STRIDE * j;
               float t;
               if (plane_t(load3(P), load3(P + 3), ph, q, t) && t < tmax) blocked = true;
+            }
+            if constexpr (TRIS) {
+              if (!blocked) {
+                int crossed = 0;
+                blocked = tri_feeler(T, ph, q, tmax, crossed);
+                if (crossed) opac *= powf(TRI_THROUGH, (float)crossed);
+              }
             }
             soft += blocked ? 0.0f : opac;
           }
@@ -491,6 +701,7 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
   if constexpr (RECORD) {
     for (int s = min(nodes, R.krec); s < R.krec; ++s) {
       R.rec[s * n_pix + pix] = -1;
+      R.wid[s * n_pix + pix] = -1;
       R.pick[s * n_pix + pix] = -1;
       for (int i = 0; i < nl; ++i) R.ssr[((size_t)s * nl + i) * n_pix + pix] = 0.0f;
     }
@@ -503,17 +714,46 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl,
   }
 }
 
+// The triangle tables as the kernel takes them; level_n (host memory) holds
+// the nodes of each level, root first.
+static cudaError_t make_tris(const float* geom, const float* attr, const float* node, int n,
+                             int levels, const int* level_n, int block, int fanout, Tris& T) {
+  T = Tris{};
+  if (n == 0) return cudaSuccess;
+  if (levels < 1 || levels > TRI_MAX_LEVELS || block < 1 || fanout < 2) return cudaErrorInvalidValue;
+  T.n = n;
+  T.levels = levels;
+  T.block = block;
+  T.fanout = fanout;
+  T.geom = (const float4*)geom;
+  T.attr = attr;
+  T.node = (const float4*)node;
+  for (int l = 0, off = 0; l < levels; off += level_n[l], ++l) {
+    T.off[l] = off;
+    T.cnt[l] = level_n[l];
+  }
+  return cudaSuccess;
+}
+
 extern "C" int tpuray_megakernel(const float* scene, int ns, int npl, int nl,
+                                 const float* tri_geom, const float* tri_attr,
+                                 const float* tri_node, int n_tris, int tri_levels,
+                                 const int* tri_level_n, int tri_block, int tri_fanout,
                                  const unsigned char* tex, int tex_h, int tex_w,
                                  const unsigned char* sky, int sky_h, int sky_w,
                                  int width, int height, int max_depth,
                                  int shadow_samples, float eps, float through,
                                  float default_n, float* out, void* stream) {
+  Tris T;
+  cudaError_t err = make_tris(tri_geom, tri_attr, tri_node, n_tris, tri_levels, tri_level_n,
+                              tri_block, tri_fanout, T);
+  if (err != cudaSuccess) return (int)err;
   dim3 block(BLOCK_X, BLOCK_Y);
   dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (height + BLOCK_Y - 1) / BLOCK_Y);
-  const Records none = {0, 0, nullptr, nullptr, nullptr, nullptr};
-  megakernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-      scene, ns, npl, nl, tex, tex_h, tex_w, sky, sky_h, sky_w, width, height,
+  const Records none = {0, 0, nullptr, nullptr, nullptr, nullptr, nullptr};
+  auto kernel = T.n ? megakernel<false, true> : megakernel<false, false>;
+  kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      scene, ns, npl, nl, T, tex, tex_h, tex_w, sky, sky_h, sky_w, width, height,
       max_depth, shadow_samples, eps, through, default_n, out, none);
   return (int)cudaGetLastError();
 }
@@ -521,18 +761,25 @@ extern "C" int tpuray_megakernel(const float* scene, int ns, int npl, int nl,
 // Record mode: the image in `out` plus the node records; `n_tex` textures
 // precede the sky in the texel-pick index space.  Zeroes *max_nodes first.
 extern "C" int tpuray_megakernel_record(
-    const float* scene, int ns, int npl, int nl, const unsigned char* tex,
+    const float* scene, int ns, int npl, int nl, const float* tri_geom,
+    const float* tri_attr, const float* tri_node, int n_tris, int tri_levels,
+    const int* tri_level_n, int tri_block, int tri_fanout, const unsigned char* tex,
     int n_tex, int tex_h, int tex_w, const unsigned char* sky, int sky_h,
     int sky_w, int width, int height, int max_depth, int shadow_samples,
     float eps, float through, float default_n, int krec, float* out, int* rec,
-    float* ssr, int* pick, int* max_nodes, void* stream) {
-  cudaError_t err = cudaMemsetAsync(max_nodes, 0, sizeof(int), (cudaStream_t)stream);
+    int* wid, float* ssr, int* pick, int* max_nodes, void* stream) {
+  Tris T;
+  cudaError_t err = make_tris(tri_geom, tri_attr, tri_node, n_tris, tri_levels, tri_level_n,
+                              tri_block, tri_fanout, T);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(max_nodes, 0, sizeof(int), (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   dim3 block(BLOCK_X, BLOCK_Y);
   dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (height + BLOCK_Y - 1) / BLOCK_Y);
-  const Records R = {krec, n_tex * tex_h * tex_w, rec, ssr, pick, max_nodes};
-  megakernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
-      scene, ns, npl, nl, tex, tex_h, tex_w, sky, sky_h, sky_w, width, height,
+  const Records R = {krec, n_tex * tex_h * tex_w, rec, wid, ssr, pick, max_nodes};
+  auto kernel = T.n ? megakernel<true, true> : megakernel<true, false>;
+  kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      scene, ns, npl, nl, T, tex, tex_h, tex_w, sky, sky_h, sky_w, width, height,
       max_depth, shadow_samples, eps, through, default_n, out, R);
   return (int)cudaGetLastError();
 }

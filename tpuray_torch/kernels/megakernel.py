@@ -1,9 +1,9 @@
 """The Whitted megakernel: one CUDA kernel renders the whole image.
 
 Port of ``tpuray/kernels/pallas_trace.py``: the megakernel ``_make_kernel``'s
-``kernel`` (:659) without triangles and with nearest filtering, in its base
-configuration and in record mode, ``pack_uniforms`` (:151),
-``_pallas_forward`` (:2314), ``render_pallas`` (:2452) and
+``kernel`` (:659) with nearest filtering, in its base configuration, with
+triangles (K3 and K4 as one path) and in record mode, ``pack_uniforms``
+(:151), ``_pallas_forward`` (:2314), ``render_pallas`` (:2452) and
 ``render_pallas_record`` (:2665).
 
 Per pixel it runs the reference's whole traversal (raytracing.cl:14-195):
@@ -14,13 +14,26 @@ gather in VMEM, so it wrote texel "events" that an XLA gather resolved
 after the kernel; here the texels are read where they are needed, so there
 are no event buffers, no overflow counters and nothing to retry.
 
+Triangles (the JAX package's extension; the tables are ``triblocks.py``'s)
+follow the XLA tracer (``trace.py``): Möller–Trumbore, double-faced;
+analytic solids win ties against triangles and the lowest triangle id
+wins ties among triangles; the winner's face normal is flipped against the
+ray; a textured triangle is flat-shaded, since texels are fetched for
+plane hits only (``pallas_trace.py:1832-1837``, ROADMAP C6); opaque
+triangles at t <= t_light occlude a light; a shadow feeler is blocked by
+an opaque triangle at t < tmax and keeps 0.8 per transparent one.  The
+JAX kernel's feeler guard that ignores occluders whose plane lies within
+0.05 of the feeler's origin (``_TRI_FEELER_PLANE_DIST``) hides bf16 noise
+the port does not have, and is not carried over (ROADMAP C).
+
 The functions:
 
 * :func:`pack_scene` flattens scene + camera basis into one f32 buffer with
   static offsets (:class:`SceneLayout`), the layout ``csrc/megakernel.cu``
-  reads;
+  reads, and builds the triangle tables;
 * :func:`render_megakernel_reference` is the plain PyTorch version: the same
-  per-pixel DFS as whole-image masked tensor code;
+  per-pixel DFS as whole-image masked tensor code, with the triangle search
+  by brute force;
 * :func:`render_megakernel` is the wrapper: CPU tensors go to the plain
   version, CUDA tensors launch the CUDA kernel (or raise);
 * :func:`render_megakernel_record` and its plain version
@@ -32,11 +45,16 @@ Records (``pallas_trace.py:2102-2148``; the layout is the port's own):
 
 * ``rec`` [Krec, n_pix] i32: ``code | parent_byte << 8`` for node slot s of
   each pixel, in DFS order, -1 where the pixel has no node s.  ``code`` is
-  the solid hit (spheres first, then planes), ``LIGHT_CODE + l`` for light
-  l, or ``MISS_CODE``.  The parent byte is the parent's 6-bit slot, plus
-  ``PC_REFRACT`` for the refracted child, plus ``PC_VALID``; the root has
-  0.  A node past slot Krec - 1 is not written and its children get parent
-  byte 0, so the replay drops the subtree.
+  the solid hit (spheres first, then planes), ``TRI_CODE`` (126) for a
+  triangle, ``LIGHT_CODE + l`` for light l, or ``MISS_CODE``.  The parent
+  byte is the parent's 6-bit slot, plus ``PC_REFRACT`` for the refracted
+  child, plus ``PC_VALID``; the root has 0.  A node past slot Krec - 1 is
+  not written and its children get parent byte 0, so the replay drops the
+  subtree.
+* ``wid`` [Krec, n_pix] i32: the winning triangle's id (in the scene's
+  Morton order) where the node hit a triangle, -1 elsewhere.  One plane for
+  every triangle count (the JAX kernel packs 15 bits into ``rec`` below
+  32,768 triangles and writes a wide plane above).
 * ``ssr`` [Krec, nl, n_pix] f32: each solid node's soft-shadow ratio per
   light (1.0 without shadow samples), 0 elsewhere.
 * ``pick`` [Krec, n_pix] i32: the texel the node fetched (a textured plane
@@ -50,15 +68,19 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..camera import PerspectiveBasis
 from ..config import RenderConfig
-from ..scene import Materials, Scene
+from ..scene import Scene
 from ..textures import SceneAssets
 from . import primitives as pr
+from .triblocks import (ATTR_STRIDE, TRI_CODE, TRI_MAX_LEVELS, TRI_THROUGH,
+                        BruteForce, TriTables, build_tri_tables,
+                        material_rows)
 
 # The kernel's per-thread ray stack has this many levels (csrc/megakernel.cu
 # MAX_DEPTH_CAP); the reference's depth is 15.
@@ -70,7 +92,7 @@ MISS_CODE = 127
 PC_VALID = 0x80
 PC_REFRACT = 0x40
 MAX_RECORD_SOLIDS = LIGHT_CODE     # solid codes must stay below LIGHT_CODE
-MAX_RECORD_LIGHTS = 62             # LIGHT_CODE + l below 126
+MAX_RECORD_LIGHTS = 62             # LIGHT_CODE + l below TRI_CODE
 
 # Packed layout, mirrored by the #defines in csrc/megakernel.cu:
 #   [0:15)  basis: corner3, origin3, up3, right3, w_factor, h_factor, row0
@@ -117,15 +139,7 @@ class PackedScene:
     buf: torch.Tensor      # [layout.size] f32 on the render device
     layout: SceneLayout
     max_texture_id: int    # largest plane texture id (-1: no textures)
-
-
-def _material_rows(m: Materials) -> torch.Tensor:
-    cols = [m.rgb, m.ambient[:, None], m.diffuse[:, None],
-            m.specular[:, None], m.shininess[:, None],
-            m.transparent[:, None], m.dielectric[:, None], m.n[:, None],
-            m.reflectivity[:, None], m.texture_id[:, None],
-            m.texture_scale[:, None]]
-    return torch.cat([c.to(torch.float32) for c in cols], dim=1)
+    tris: Optional[TriTables] = None   # None: no triangles
 
 
 def pack_scene(scene: Scene, basis: PerspectiveBasis,
@@ -134,11 +148,9 @@ def pack_scene(scene: Scene, basis: PerspectiveBasis,
 
     ``row0`` is the image row of the first rendered row: a slab of rows
     keeps the ray directions and RNG seeds (the pixel ids) that the full
-    image gives them."""
-    if scene.num_triangles:
-        raise NotImplementedError(
-            f"the scene has {scene.num_triangles} triangles; triangle meshes "
-            "are not ported yet (ROADMAP.md queue B, K3/K4)")
+    image gives them.  Raises ``ValueError`` above
+    ``triblocks.TRI_MAX_TRIANGLES`` triangles, before building anything."""
+    tris = build_tri_tables(scene)
     dev = scene.device
     f32 = torch.float32
     b = basis.to(dev)
@@ -146,9 +158,9 @@ def pack_scene(scene: Scene, basis: PerspectiveBasis,
              torch.stack([b.w_factor, b.h_factor]).to(f32),
              torch.tensor([float(row0)], dtype=f32, device=dev)]
     parts.append(torch.cat([scene.sphere_origin, scene.sphere_radius[:, None],
-                            _material_rows(scene.sphere_mat)], 1).reshape(-1))
+                            material_rows(scene.sphere_mat)], 1).reshape(-1))
     parts.append(torch.cat([scene.plane_normal, scene.plane_point,
-                            _material_rows(scene.plane_mat)], 1).reshape(-1))
+                            material_rows(scene.plane_mat)], 1).reshape(-1))
     parts.append(torch.cat([scene.light_origin, scene.light_radius[:, None],
                             scene.light_intensity[:, None], scene.light_rgb],
                            1).reshape(-1))
@@ -156,7 +168,8 @@ def pack_scene(scene: Scene, basis: PerspectiveBasis,
     tid = scene.plane_mat.texture_id
     max_tid = int(tid.max()) if tid.numel() else -1
     lay = SceneLayout(scene.num_spheres, scene.num_planes, scene.num_lights)
-    return PackedScene(buf=buf, layout=lay, max_texture_id=max_tid)
+    return PackedScene(buf=buf, layout=lay, max_texture_id=max_tid,
+                       tris=tris)
 
 
 # ---------------------------------------------------------------------------
@@ -173,7 +186,8 @@ def _unpack(packed: PackedScene):
 
 
 def render_megakernel_reference(packed: PackedScene, assets: SceneAssets,
-                                cfg: RenderConfig) -> torch.Tensor:
+                                cfg: RenderConfig,
+                                tri_search=None) -> torch.Tensor:
     """Plain PyTorch version of the megakernel: [H, W, 3] f32 linear rgb.
 
     Each pixel runs the kernel's DFS; here every lane quantity is an [N]
@@ -182,8 +196,12 @@ def render_megakernel_reference(packed: PackedScene, assets: SceneAssets,
     exactly one of: pop (over depth, a light hit or a miss; the last pop
     finishes the pixel), push (a transparent hit stacks the reflected ray
     and follows the refracted one) or continue along the reflected ray.
+
+    ``tri_search`` answers the triangle queries of a step (the interface
+    of :class:`triblocks.BruteForce`, the default); a measurement may pass
+    one that also counts the work the kernel's culls leave.
     """
-    return _trace_reference(packed, assets, cfg, None)[0]
+    return _trace_reference(packed, assets, cfg, None, tri_search)[0]
 
 
 def render_megakernel_record_reference(packed: PackedScene,
@@ -197,7 +215,7 @@ def render_megakernel_record_reference(packed: PackedScene,
 
 
 def _trace_reference(packed: PackedScene, assets: SceneAssets,
-                     cfg: RenderConfig, krec):
+                     cfg: RenderConfig, krec, tri_search=None):
     """The whole-image DFS behind both plain versions; ``krec`` None
     renders without records."""
     dev = packed.buf.device
@@ -216,6 +234,9 @@ def _trace_reference(packed: PackedScene, assets: SceneAssets,
     p_mat = pln[:, 6:]
     s_transp = s_mat[:, M_TRANSPARENT] > 0.5
     p_b0, p_b1 = pr.plane_texture_basis(pln[:, 0:3])
+    tris = packed.tris
+    if tris is not None and tri_search is None:
+        tri_search = BruteForce(tris)
 
     # ---- raygen (raygen.cl:10-24, pallas_trace.py:700-719) ----
     B = packed.buf[:BASIS_SIZE]
@@ -245,6 +266,7 @@ def _trace_reference(packed: PackedScene, assets: SceneAssets,
     if record:
         i32 = torch.int32
         rec = torch.full((krec, n_pix), -1, dtype=i32, device=dev)
+        wid_out = torch.full((krec, n_pix), -1, dtype=i32, device=dev)
         pick = torch.full((krec, n_pix), -1, dtype=i32, device=dev)
         ssr_out = torch.zeros(krec, nl, n_pix, dtype=f32, device=dev)
         nodes = torch.zeros(n_pix, dtype=torch.int64, device=dev)
@@ -290,6 +312,20 @@ def _trace_reference(packed: PackedScene, assets: SceneAssets,
             better = tm < bt
             bt = torch.where(better, tm, bt)
             bwin = torch.where(better, ns + i, bwin)
+        # --- triangles (trace.py:462-466): the analytic solids win ties ---
+        wid = torch.full_like(DEP, -1)
+        if tris is not None:
+            t_tri = torch.full_like(bt, float("inf"))
+            w_tri = torch.full_like(wid, -1)
+            wk = work.nonzero().squeeze(1)
+            if wk.numel():
+                t_tri[wk], w_tri[wk], lb_tri = tri_search.closest(
+                    O[wk], Dd[wk], lt[wk], bt[wk])
+                lblock[wk] |= lb_tri
+            tri_better = t_tri < bt
+            bt = torch.where(tri_better, t_tri, bt)
+            bwin = torch.where(tri_better, TRI_CODE, bwin)
+            wid = torch.where(tri_better, w_tri, wid)
         light_hit = light_any & ~lblock
         solid_hit = torch.isfinite(bt)
         t_safe = torch.where(solid_hit, bt, torch.zeros_like(bt))
@@ -306,6 +342,15 @@ def _trace_reference(packed: PackedScene, assets: SceneAssets,
             sel = (bwin == ns + i)[:, None]
             nrm = torch.where(sel, pln[i, 0:3], nrm)
             mat = torch.where(sel, p_mat[i], mat)
+        if tris is not None:
+            # the winner's face normal, flipped against the ray
+            # (trace.py:479-484), and its material
+            sel = (bwin == TRI_CODE)[:, None]
+            row = tris.attr[wid.clamp(min=0)]
+            tn = row[:, 0:3]
+            tn = torch.where((pr.dot3(tn, Dd) > 0)[:, None], -tn, tn)
+            nrm = torch.where(sel, tn, nrm)
+            mat = torch.where(sel, row[:, 3:ATTR_STRIDE], mat)
 
         is_light = work & light_hit
         is_miss = work & ~light_hit & ~solid_hit
@@ -325,8 +370,9 @@ def _trace_reference(packed: PackedScene, assets: SceneAssets,
                           cx2 + (F / 255.0)[:, None] * sky_rgb, cx2)
 
         # --- solid hit: textured plane -> texel * f * ambient, otherwise
-        #     rgb * f * ambient (raytracing.cl:83-84, primitives.cl:217-259)
-        is_plane = bwin >= ns
+        #     rgb * f * ambient (raytracing.cl:83-84, primitives.cl:217-259);
+        #     a textured triangle is flat (pallas_trace.py:1832-1837) ---
+        is_plane = (bwin >= ns) & (bwin < ns + npl)
         textured = is_solid & is_plane & (mat[:, M_TEXTURE_ID] > -0.5)
         tex_idx = torch.full_like(DEP, -1)
         if npl:
@@ -351,7 +397,8 @@ def _trace_reference(packed: PackedScene, assets: SceneAssets,
         ssrs = None
         if bool(is_solid.any()):
             acc, rng_sh, ssrs = _shade(O, ph, nrm, mat, F, RNG, sph, s_transp,
-                                       pln, lgt, n_samples, through, record)
+                                       pln, lgt, n_samples, through, record,
+                                       tri_search)
             cx2 = torch.where(is_solid[:, None], cx2 + acc, cx2)
             RNG = torch.where(is_solid, rng_sh, RNG)
 
@@ -367,6 +414,8 @@ def _trace_reference(packed: PackedScene, assets: SceneAssets,
                                          torch.full_like(tex_idx, -1)))
             lanes, s_can = act[can], slot[can]
             rec[s_can, lanes] = (code | (PC << 8))[can].to(i32)
+            wid_out[s_can, lanes] = torch.where(is_solid, wid,
+                                                -1)[can].to(i32)
             pick[s_can, lanes] = pk[can].to(i32)
             if ssrs is not None:
                 shaded = can & is_solid
@@ -441,12 +490,12 @@ def _trace_reference(packed: PackedScene, assets: SceneAssets,
     if not record:
         return img, None
     max_nodes = (nodes.max() if n_pix else nodes.new_zeros(())).to(i32)
-    return img, {"rec": rec, "ssr": ssr_out, "pick": pick,
+    return img, {"rec": rec, "wid": wid_out, "ssr": ssr_out, "pick": pick,
                  "max_nodes": max_nodes}
 
 
 def _shade(O, ph, nrm, mat, F, rng, sph, s_transp, pln, lgt, n_samples,
-           through, record=False):
+           through, record=False, tri_search=None):
     """Soft-shadow Phong of every light at the offset hit points ``ph``
     (raytracing.cl:87-136, pallas_trace.py:1963-2100).  Returns the added
     colour [n, 3], the advanced RNG state and each light's shadow ratio
@@ -499,6 +548,16 @@ def _shade(O, ph, nrm, mat, F, rng, sph, s_transp, pln, lgt, n_samples,
             for j in range(pln.shape[0]):
                 h, t = pr.intersect_plane(ph, q, pln[j, 0:3], pln[j, 3:6])
                 blocked |= h & (t < tmax)
+            if tri_search is not None:
+                # the kernel sweeps the triangles of a sample not yet
+                # blocked (trace.py:342-386)
+                go = (~blocked).nonzero().squeeze(1)
+                if go.numel():
+                    tb, cnt = tri_search.blocked(ph[go], q[go], tmax[go])
+                    blocked[go] = tb
+                    opac[go] = opac[go] * torch.pow(
+                        torch.tensor(TRI_THROUGH, dtype=opac.dtype,
+                                     device=opac.device), cnt.to(opac.dtype))
             soft = soft + torch.where(blocked, torch.zeros_like(opac), opac)
         ssr = soft / float(n_samples) if n_samples else soft + 1.0
         ssrs.append(ssr)
@@ -532,6 +591,16 @@ def _check_inputs(packed: PackedScene, assets: SceneAssets,
             or buf.numel() != packed.layout.size or not buf.is_contiguous():
         raise ValueError("packed scene must be a contiguous f32 vector of "
                          f"{packed.layout.size} values (use pack_scene)")
+    tris = packed.tris
+    if tris is not None and any(
+            t.device != buf.device or t.dtype != torch.float32
+            or not t.is_contiguous()
+            for t in (tris.geom, tris.attr, tris.node)):
+        raise ValueError("triangle tables must be contiguous f32 on the "
+                         "scene's device (use pack_scene)")
+    if tris is not None and len(tris.level_n) > TRI_MAX_LEVELS:
+        raise ValueError(f"the triangle tree has {len(tris.level_n)} levels; "
+                         f"the kernel takes at most {TRI_MAX_LEVELS}")
     if tex.dtype != torch.uint8 or tex.dim() != 4 or tex.shape[3] != 3 \
             or tex.shape[0] < 1 or not tex.is_contiguous():
         raise ValueError(f"textures must be contiguous u8 [N>=1, H, W, 3], "
@@ -563,6 +632,16 @@ def _kernel_error(lib, err, what):
     return RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
+def _tri_args(tris: Optional[TriTables]) -> tuple:
+    """The kernel's triangle arguments: geom, attr, node pointers, count,
+    levels, the host array of nodes per level, block and fanout."""
+    if tris is None:
+        return (None, None, None, 0, 0, None, 1, 1)
+    level_n = (ctypes.c_int * len(tris.level_n))(*tris.level_n)
+    return (tris.geom.data_ptr(), tris.attr.data_ptr(), tris.node.data_ptr(),
+            tris.n, len(tris.level_n), level_n, tris.block, tris.fanout)
+
+
 def render_megakernel(packed: PackedScene, assets: SceneAssets,
                       cfg: RenderConfig) -> torch.Tensor:
     """Render ``cfg.height`` rows of ``cfg.width`` pixels: [H, W, 3] f32.
@@ -589,6 +668,7 @@ def render_megakernel(packed: PackedScene, assets: SceneAssets,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tpuray_megakernel(
             packed.buf.data_ptr(), lay.n_spheres, lay.n_planes, lay.n_lights,
+            *_tri_args(packed.tris),
             tex.data_ptr(), tex.shape[1], tex.shape[2],
             sky.data_ptr(), sky.shape[0], sky.shape[1],
             cfg.width, cfg.height, cfg.max_depth, cfg.shadow_samples,
@@ -629,11 +709,13 @@ def render_megakernel_record(packed: PackedScene, assets: SceneAssets,
     out = torch.empty((cfg.height, cfg.width, 3), dtype=torch.float32,
                       device=dev)
     rec = torch.empty((krec, n_pix), dtype=torch.int32, device=dev)
+    wid = torch.empty((krec, n_pix), dtype=torch.int32, device=dev)
     ssr = torch.empty((krec, lay.n_lights, n_pix), dtype=torch.float32,
                       device=dev)
     pick = torch.empty((krec, n_pix), dtype=torch.int32, device=dev)
     max_nodes = torch.empty((), dtype=torch.int32, device=dev)
-    records = {"rec": rec, "ssr": ssr, "pick": pick, "max_nodes": max_nodes}
+    records = {"rec": rec, "wid": wid, "ssr": ssr, "pick": pick,
+               "max_nodes": max_nodes}
     if n_pix == 0:
         max_nodes.zero_()
         return out, records
@@ -641,14 +723,15 @@ def render_megakernel_record(packed: PackedScene, assets: SceneAssets,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tpuray_megakernel_record(
             packed.buf.data_ptr(), lay.n_spheres, lay.n_planes, lay.n_lights,
+            *_tri_args(packed.tris),
             tex.data_ptr(), tex.shape[0], tex.shape[1], tex.shape[2],
             sky.data_ptr(), sky.shape[0], sky.shape[1],
             cfg.width, cfg.height, cfg.max_depth, cfg.shadow_samples,
             float(np.float32(cfg.epsilon)),
             float(np.float32(cfg.transparent_through)),
             float(np.float32(cfg.default_n)), krec,
-            out.data_ptr(), rec.data_ptr(), ssr.data_ptr(), pick.data_ptr(),
-            max_nodes.data_ptr(), stream)
+            out.data_ptr(), rec.data_ptr(), wid.data_ptr(), ssr.data_ptr(),
+            pick.data_ptr(), max_nodes.data_ptr(), stream)
     if err:
         raise _kernel_error(lib, err, "record megakernel")
     render_megakernel_record.launches += 1

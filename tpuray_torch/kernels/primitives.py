@@ -23,6 +23,21 @@ def dot3(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
+def length3(v):
+    return torch.sqrt(dot3(v, v))
+
+
+def distance3(a, b):
+    return length3(a - b)
+
+
+def cross3(a, b):
+    """a x b, each component as ``a_i*b_j - a_j*b_i`` in the JAX order."""
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
+
+
 def normalize3(v):
     """v * rsqrt(|v|^2), zero for a zero vector (pallas_trace.py:492)."""
     n2 = dot3(v, v)
@@ -147,6 +162,32 @@ def intersect_plane(o, d, normal, point):
     safe_b = torch.where(b == 0, torch.ones_like(b), b)
     t = dot3(point - o, normal) / safe_b
     return (b != 0) & (t > 0), t
+
+
+TRI_DET_EPS = 1e-7
+
+
+def intersect_triangle_edges(o, d, v0, e1, e2):
+    """Möller–Trumbore on a triangle given as v0 and its edges e1 = v1 - v0,
+    e2 = v2 - v0 (the megakernel's triangle table): double-faced, rejects
+    ``|det| <= 1e-7`` on the unnormalised det, and hits where u >= 0,
+    v >= 0, u + v <= 1 and t > 0.  Returns (hit, t)."""
+    pvec = cross3(d, e2)
+    det = dot3(e1, pvec)
+    ok = det.abs() > TRI_DET_EPS
+    inv_det = 1.0 / torch.where(ok, det, torch.ones_like(det))
+    tvec = o - v0
+    u = dot3(tvec, pvec) * inv_det
+    qvec = cross3(tvec, e1)
+    v = dot3(d, qvec) * inv_det
+    t = dot3(e2, qvec) * inv_det
+    return ok & (u >= 0) & (v >= 0) & (u + v <= 1.0) & (t > 0), t
+
+
+def intersect_triangle(o, d, v0, v1, v2):
+    """Möller–Trumbore ray/triangle test, as
+    ``tpuray.kernels.primitives.intersect_triangle``.  Returns (hit, t)."""
+    return intersect_triangle_edges(o, d, v0, v1 - v0, v2 - v0)
 
 
 def reflect(incident, normal):

@@ -30,9 +30,11 @@ Differences from the JAX replay:
   over the candidates of the earlier slots (see :func:`replay_render`).
 * Slots at and past ``max_nodes`` hold no record in any pixel and are
   skipped.
+* A triangle node (``TRI_CODE``) reads its triangle by the recorded id
+  (``records["wid"]``) with one ``index_select`` per slot: a one-hot
+  product over up to 524,288 triangles would not fit.
 
-Triangles (K3/K4 records) and bilinear records (K2) are not ported yet
-(ROADMAP.md queue B); :func:`replay_render` refuses them.
+Bilinear records (K2) are not ported yet (ROADMAP.md queue B).
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ from ..textures import SceneAssets
 from . import primitives as pr
 from .megakernel import (LIGHT_CODE, MAX_RECORD_LIGHTS, MAX_RECORD_SOLIDS,
                          MISS_CODE, PC_REFRACT, PC_VALID)
+from .triblocks import TRI_CODE, check_triangle_count
 
 F32 = torch.float32
 
@@ -145,6 +148,30 @@ def _solid_table(scene: Scene) -> torch.Tensor:
     return torch.cat([spheres, planes], 0)
 
 
+def _tri_table(scene: Scene) -> torch.Tensor:
+    """[T, 9 + 13] f32, differentiable: v0, v1, v2, material rgb and the
+    fields of ``_MAT_FIELDS``."""
+    m = scene.tri_mat
+    return torch.cat([scene.tri_v0, scene.tri_v1, scene.tri_v2, m.rgb]
+                     + [getattr(m, f).to(F32)[:, None] for f in _MAT_FIELDS],
+                     1)
+
+
+def _tri_hit(o, d, v0, v1, v2):
+    """Recorded-winner triangle (replay.py:272-297): Möller–Trumbore t with
+    the search replaced by the recorded id, its guarded 1/det, and the face
+    normal flipped against the ray."""
+    e1, e2 = v1 - v0, v2 - v0
+    det = pr.dot3(e1, pr.cross3(d, e2))
+    nz = det != 0
+    inv_det = torch.where(nz, 1.0 / torch.where(nz, det, torch.ones_like(det)),
+                          torch.zeros_like(det))
+    t = pr.dot3(e2, pr.cross3(o - v0, e1)) * inv_det
+    tn = pr.normalize3(pr.cross3(e1, e2))
+    tn = torch.where((pr.dot3(tn, d) > 0)[:, None], -tn, tn)
+    return t, tn
+
+
 def replay_render(scene: Scene, assets: SceneAssets,
                   basis: PerspectiveBasis, records: dict,
                   cfg: RenderConfig, row0: int = 0) -> torch.Tensor:
@@ -166,10 +193,8 @@ def replay_render(scene: Scene, assets: SceneAssets,
     (Krec - 1) * n_pix * 32 bytes, 722 MB at 800x600 depth 15 (Krec 48).
     """
     ns, npl, nl = scene.num_spheres, scene.num_planes, scene.num_lights
-    if scene.num_triangles:
-        raise NotImplementedError(
-            f"the scene has {scene.num_triangles} triangles; triangle records "
-            "are not ported yet (ROADMAP.md queue B, K3/K4)")
+    nt = scene.num_triangles
+    check_triangle_count(nt)
     if ns + npl > MAX_RECORD_SOLIDS or nl > MAX_RECORD_LIGHTS:
         raise ValueError(f"the replay's hit codes take at most "
                          f"{MAX_RECORD_SOLIDS} solids and "
@@ -185,6 +210,7 @@ def replay_render(scene: Scene, assets: SceneAssets,
     n_slots = min(int(records["max_nodes"]), rec.shape[0])
     o0, d0 = generate_rays(basis, width, height, row0)
     table = _solid_table(scene)
+    tri_table = _tri_table(scene) if nt else None
     lights = torch.cat([scene.light_intensity[:, None], scene.light_rgb], 1)
     # every texel a pick can name: the textures, then the sky
     texels = torch.cat([assets.textures.reshape(-1, 3),
@@ -220,7 +246,8 @@ def replay_render(scene: Scene, assets: SceneAssets,
 
         is_sphere = code < ns
         is_plane = (code >= ns) & (code < ns + npl)
-        is_solid = (is_sphere | is_plane) & valid
+        is_tri = (code == TRI_CODE) & valid
+        is_solid = (is_sphere | is_plane) & valid | is_tri
         is_light = (code >= LIGHT_CODE) & (code < LIGHT_CODE + nl) & valid
         is_miss = (code == MISS_CODE) & valid
         zero = torch.zeros_like(f)
@@ -237,10 +264,21 @@ def replay_render(scene: Scene, assets: SceneAssets,
         t_sph = _sphere_t(o, d, center, radius, is_sphere)
         _, t_pl = pr.intersect_plane(o, d, p_nrm, p_pt)
         t = torch.where(is_sphere, t_sph, torch.where(is_plane, t_pl, zero))
+        if nt:
+            wid = records["wid"][s].to(torch.int64).clamp(0, nt - 1)
+            tri = tri_table.index_select(0, wid)
+            t_tri, n_tri = _tri_hit(o, d, tri[:, 0:3], tri[:, 3:6],
+                                    tri[:, 6:9])
+            t = torch.where(is_tri, t_tri, t)
+            # the triangle's material in the solid table's columns
+            row = torch.where(is_tri[:, None], torch.cat(
+                [row[:, :_COLS["rgb"].start], tri[:, 9:]], 1), row)
         t = torch.where(is_solid, t, zero)
         hit = o + t[:, None] * d
         n_vec = torch.where(is_sphere[:, None], pr.normalize3(hit - center),
                             p_nrm)
+        if nt:
+            n_vec = torch.where(is_tri[:, None], n_tri, n_vec)
         ph = hit + eps * n_vec
         ambient = row[:, _COLS["ambient"]]
 

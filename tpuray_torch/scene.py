@@ -8,8 +8,9 @@ cpu_obj.h:10-48, material presets at cpu_obj.c:6-49).  Two levels:
 * ``Scene`` / ``Materials`` are structure-of-arrays dataclasses of tensors on
   one device, with the JAX ``Scene`` pytree's field names.
 
-Triangles are carried (the archive format has them) but the renderer does
-not take them yet (ROADMAP.md queue B, K3/K4).
+Triangles are the JAX package's extension (the reference has none); a built
+scene holds them in Morton order, the order the megakernel's triangle
+tables (``kernels/triblocks.py``) and recorded triangle ids refer to.
 """
 from __future__ import annotations
 
