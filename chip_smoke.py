@@ -36,7 +36,26 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     steps), which must go through K5 and lower the loss;
 13. times and bounds of the mesh kernels: 512x384 d3 with 7,424 and with
     163,840 triangles, 3840x2160 d6 with 10,240, and K5 at 512x384 d3 with
-    7,424.
+    7,424;
+14. bilinear filtering (K2, the ``BILINEAR`` instantiations) against its
+    plain version at 256x64 d3 and 800x600 d15, ``render()`` with
+    ``filter='bilinear'`` through it, K2 and K1 times at 800x600 d15 and
+    1920x1080 d4, and the ptxas figures of every instantiation;
+15. bilinear records (K5 with 4 texel picks per fetch) against the plain
+    version, the replay against K5's image, and the bilinear gradient on
+    the card against the CPU's, with a spatial gradient on ``plane_point``;
+16. the triangle-query kernel (K6, ``csrc/tri_query.cu``) against its plain
+    version: closest hits, strict and inclusive blocker tests, on 512x384
+    primary rays and on random rays, over 7,424 and 163,840 triangles,
+    with times and bounds;
+17. the tracer engine on the card: ``render(engine='tracer')`` at 512x384
+    d3 against K1 (canonical scene) and K3 (7,424 triangles), one of them
+    under the profiler (CUDA kernels, device busy share), raypng
+    ``--engine tracer`` at 800x600 d15 against K1's image, and the
+    589,824-triangle scene above the megakernel's cap through
+    ``engine='auto'``, which must go to the tracer and K6;
+18. invrender ``--engine tracer``: 128x96 d3, 10 steps on the canonical
+    scene, then 5 steps on the 7,424-triangle archive through K6.
 
 It prints a JSON line of per-kernel results, then, last, the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it fails and
@@ -54,10 +73,15 @@ scene, the triangle tables and, for K5, the records.  With triangles the
 FLOPs add the work of the triangle walks: the box tests and the (ray,
 triangle) Möller–Trumbore pairs that the kernel's AABB tree leaves, counted
 on the host by :class:`TreeSearch` at the same inputs.  That is the bound of
-this design (its tree, its culls), not of any acceleration structure.
+this design (its tree, its culls), not of any acceleration structure.  A
+bilinear fetch adds its 4 texels' bytes and ``BILINEAR_FETCH_FLOPS``.  The
+triangle-query kernel's bound is the same count of box tests and pairs over
+the fp32 rate against the rays' bytes (and the tables') over the memory
+rate.
 """
 import json
 import os
+import re
 import subprocess
 import tempfile
 import time
@@ -103,6 +127,24 @@ MESH_K4 = (6, (256, 160))
 # whole image: through the meshes (rows 217-274 of 384 hold triangle hits)
 K4_SLAB = (240, 16)
 SLAB_4K = (1528, 16)
+# fp32 operations a bilinear fetch adds to a nearest one: the floors and
+# fractions, 4 weights, 4 weighted texels and the wraps or clamps
+BILINEAR_FETCH_FLOPS = 30
+# bytes per ray of the triangle-query kernel: in (o, d[, tmax]), out (t and
+# id, or blocked and count)
+QUERY_RAY_BYTES = {"closest": 24 + 8, "blocker": 28 + 5}
+QUERY_RANDOM_RAYS = 65536
+# the scene above the megakernel's cap: 327,680 + 262,144 triangles
+MESH_ABOVE_CAP = (7, (512, 256))
+ABOVE_CAP_CHECK_RAYS = 4096
+# the tracer against the megakernel (tests/test_render.py:83)
+TRACER_AGREE_ABS = 1e-2
+TRACER_AGREE_FRAC = 0.995
+# u8 bar (tests/test_pallas_engine.py:343-348)
+U8_WITHIN_1 = 0.98
+U8_MEAN = 1.0
+TRACER_INVRENDER_STEPS = 10
+TRACER_MESH_STEPS = 5
 
 
 def phase(n, name, text):
@@ -135,24 +177,29 @@ def bound(records, packed, cfg, with_records, walks=None):
     rec = records["rec"]
     code, written = rec & 0xFF, rec >= 0
     solid = (code < lay.n_spheres + lay.n_planes) | (code == TRI_CODE)
+    n_pix = cfg.width * cfg.height
+    pick = records["pick"].reshape(rec.shape[0], -1, n_pix)
     counts = {"nodes": int(written.sum()),
               "solid": int((written & solid).sum()),
               "miss": int((written & (code == 127)).sum()),
-              "picks": int((records["pick"] >= 0).sum())}
+              "picks": int((pick >= 0).sum()),
+              "fetches": int((pick[:, 0] >= 0).sum())}
     counts["light"] = counts["nodes"] - counts["solid"] - counts["miss"]
     f = node_flops(lay.n_spheres, lay.n_planes, lay.n_lights,
                    cfg.shadow_samples)
     flops = (counts["nodes"] * f["node"] + counts["solid"] * f["solid"]
              + counts["miss"] * f["miss"] + counts["light"] * f["light"])
-    n_pix = cfg.width * cfg.height
+    if cfg.filter == "bilinear":
+        flops += counts["fetches"] * BILINEAR_FETCH_FLOPS
     nbytes = n_pix * 12 + counts["picks"] * 3 + packed.buf.numel() * 4
     if packed.tris is not None:
         t = packed.tris
         nbytes += 4 * (t.geom.numel() + t.attr.numel() + t.node.numel())
         counts.update(mt_pairs=walks.pairs, box_tests=walks.boxes)
         flops += walks.pairs * MT_FLOPS + walks.boxes * BOX_FLOPS
-    if with_records:
-        nbytes += rec.shape[0] * n_pix * (12 + 4 * lay.n_lights) + 4
+    if with_records:   # rec, wid, the picks and ssr of every slot
+        nbytes += rec.shape[0] * n_pix * (
+            8 + 4 * pick.shape[1] + 4 * lay.n_lights) + 4
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     counts.update(flops=flops, bytes=nbytes,
                   max_nodes=int(records["max_nodes"]))
@@ -275,26 +322,26 @@ class TreeSearch:
         return first < self.tris.n, count
 
 
-def profile_step(trainer, shape):
-    """One training step under torch.profiler: its CUDA kernel launches,
-    the time the device was busy with them (the union of their intervals),
-    the step's wall time under the profiler and the three kernels that
-    took the most device time."""
+def profile_step(step, what):
+    """One call of ``step`` under torch.profiler, after one unprofiled
+    call: its CUDA kernel launches, the time the device was busy with them
+    (the union of their intervals), the call's wall time under the
+    profiler and the three kernels that took the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    trainer.step(True)
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.step(True)
+        step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     if not spans:
-        return (f"profiled step {shape}: device time not measured (the "
+        return (f"profiled {what}: device time not measured (the "
                 "profiler recorded no CUDA events)")
     busy, end = 0.0, None
     for a, b in spans:
@@ -308,7 +355,7 @@ def profile_step(trainer, shape):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    return (f"profiled step {shape}: {len(spans)} CUDA kernels, "
+    return (f"profiled {what}: {len(spans)} CUDA kernels, "
             f"device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
             f"wall under the profiler ({busy / wall_us:.1%}); most device "
             "time: " + ", ".join(f"{name[:48]} {us / 1e3:.3f} ms"
@@ -568,7 +615,487 @@ def mesh_phases(tt, dev, card, assets, camera, asset_args):
     k4 = entry("k4", "megakernel_triangles_streamed", max_err["k4"])
     k4["shape"] = (f"512x384 d3 ss2, {n_tris['k4']:,} triangles; plain_ms "
                    f"on rows {K4_SLAB[0]}-{sum(K4_SLAB) - 1}")
-    return k3, k4
+    return k3, k4, specs, scenes
+
+
+def ptxas_figures(log):
+    """'name: R registers, F B frame, S B spills' of each kernel entry in
+    the build log, the template arguments of ``megakernel<RECORD, TRIS,
+    BILINEAR>`` written out."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            args = re.findall(r"Lb([01])E", name.split("EEv")[0] + "E")
+            base = re.sub(r"^_Z\d+", "", name).split("I")[0].split("4Tris")[0]
+            name = f"{base}<{','.join(args)}>" if args else base
+            frame = spills = "?"
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m and name:
+            frame, spills = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {frame} B frame, "
+                       f"{spills} B spills")
+            name = None
+    return out
+
+
+def bilinear_phases(tt, dev, card, scene, assets, camera, lib_log):
+    """Phases 14-15, bilinear filtering (K2) and its records; returns the
+    kernels-line entries of K2 and of K5 with bilinear records."""
+    from tpuray_torch.kernels.megakernel import (
+        render_megakernel, render_megakernel_record,
+        render_megakernel_record_reference, render_megakernel_reference)
+    from tpuray_torch.utils.metrics import cuda_time_ms
+
+    def inputs(width, height, depth, samples=2, **kw):
+        cfg = tt.RenderConfig(width=width, height=height, max_depth=depth,
+                              shadow_samples=samples, filter="bilinear", **kw)
+        basis = tt.perspective_basis(camera, width, height, device=dev)
+        return tt.pack_scene(scene, basis), cfg, basis
+
+    # -- 14. K2 against its plain version, the render() path, times --
+    results, k2_err = [], 0.0
+    for width, height, depth in ((256, 64, 3), (800, 600, 15)):
+        packed, cfg, _ = inputs(width, height, depth)
+        before = render_megakernel.bilinear_launches
+        got = render_megakernel(packed, assets, cfg)
+        torch.cuda.synchronize()
+        if render_megakernel.bilinear_launches != before + 1:
+            raise RuntimeError("the wrapper did not count its bilinear launch")
+        want = render_megakernel_reference(packed, assets, cfg)
+        nearest = render_megakernel(packed, assets,
+                                    cfg.replace(filter="nearest"))
+        agree, mean, err = agreement(got, want)
+        k2_err = max(k2_err, err)
+        moved = float((got - nearest).abs().max())
+        results.append(f"{width}x{height} d{depth}: {agree:.6f} of pixels "
+                       f"within {AGREE_ABS}, mean|d| {mean:.3g}, max|d| "
+                       f"{err:.3g}; vs nearest max|d| {moved:.3g}")
+        if agree < AGREE_FRAC or mean >= MEAN_ABS or moved <= 1e-3 \
+                or not bool(torch.isfinite(got).all()):
+            raise RuntimeError("bilinear kernel disagrees with the plain "
+                               "version: " + results[-1])
+    cfg = tt.RenderConfig(width=800, height=600, max_depth=15,
+                          shadow_samples=2, filter="bilinear")
+    render_megakernel.launches = render_megakernel.bilinear_launches = 0
+    render_megakernel_record.launches = 0
+    rgb = tt.render(scene, assets, camera, cfg)
+    torch.cuda.synchronize()
+    k2_launches = render_megakernel.bilinear_launches
+    if k2_launches != 1 or render_megakernel.launches != 1 \
+            or render_megakernel_record.launches \
+            or not bool(torch.isfinite(rgb).all()):
+        raise RuntimeError(f"render(filter='bilinear') made {k2_launches} "
+                           "bilinear launches")
+    times = {}
+    for width, height, depth in ((800, 600, 15), (1920, 1080, 4)):
+        packed, cfg, _ = inputs(width, height, depth)
+        for filt in ("nearest", "bilinear"):
+            times[(width, height, depth, filt)] = cuda_time_ms(
+                lambda: render_megakernel(packed, assets,
+                                          cfg.replace(filter=filt)))[0]
+    packed, cfg, _ = inputs(800, 600, 15)
+    k2_plain_ms = cuda_time_ms(lambda: render_megakernel_reference(
+        packed, assets, cfg), warmup=0, iters=1)[0]
+    _, recs = render_megakernel_record(packed, assets,
+                                       cfg.replace(record_slots=64))
+    k2_bound, k2_by, k2_counts = bound(recs, packed, cfg, False)
+    del recs
+    results.append(f"render(filter='bilinear') 800x600 d15: {k2_launches} "
+                   "bilinear launch")
+    results.append("; ".join(
+        f"{w}x{h} d{d} {'K2' if f == 'bilinear' else 'K1'} {ms:.4f} ms"
+        for (w, h, d, f), ms in times.items()))
+    results.append(f"K2 800x600 d15 plain {k2_plain_ms:.1f} ms (one run), "
+                   f"bound {k2_bound:.5f} ms ({k2_by}; {k2_counts})")
+    results.append("ptxas of the bilinear instantiations: " + " | ".join(
+        f for f in ptxas_figures(lib_log) if f.startswith("megakernel<")
+        and f.split(">")[0].endswith(",1")))
+    phase(14, "bilinear kernel", f"{card}: " + "; ".join(results))
+
+    # -- 15. K5 with bilinear records, the replay, the gradient --
+    results, k5b_err = [], 0.0
+    for width, height, depth, samples in ((256, 64, 3, 2), (128, 96, 3, 0)):
+        packed, cfg, basis = inputs(width, height, depth, samples)
+        img, rec = render_megakernel_record(packed, assets, cfg)
+        want, plain = render_megakernel_record_reference(packed, assets, cfg)
+        base = render_megakernel(packed, assets, cfg)
+        n_pix = width * height
+        if rec["pick"].shape != (cfg.resolved_record_slots(), 4, n_pix):
+            raise RuntimeError("bilinear picks have the wrong shape")
+        same = {k: float((rec[k] == plain[k]).reshape(-1, n_pix).all(0)
+                         .float().mean()) for k in ("rec", "wid", "pick")}
+        ssr_err = float((rec["ssr"] - plain["ssr"]).abs().max())
+        k5b_err = max(k5b_err, float((img - want).abs().max()))
+        nodes = (int(rec["max_nodes"]), int(plain["max_nodes"]))
+        # the replay's bar on the pixels whose recomputed path stays
+        # within a texel of the kernel's: after a long chain of curved
+        # reflections a few land further and weight their recorded texels
+        # otherwise (2 of 16,384 at 256x64 d3 on the card, none on the
+        # CPU); the JAX replay on the same records misses on such pixels
+        # too (tests/test_torch_bilinear.py, 800x600 d6 rows 376-385)
+        rep = tt.replay_render(scene, assets, basis, rec, cfg)
+        d = (rep - img).abs()
+        near = float((d.amax(-1) < REPLAY_MAX).float().mean())
+        results.append(
+            f"{width}x{height} d{depth} ss{samples}: records equal on "
+            f"{same['rec']:.6f}, picks (4 per fetch) on {same['pick']:.6f} "
+            f"of pixels, ssr max|d| {ssr_err:.3g}, max_nodes {nodes[0]} "
+            f"(plain {nodes[1]}), image = K2's: {torch.equal(img, base)}; "
+            f"replay vs K5 mean|d| {float(d.mean()):.3g}, max|d| "
+            f"{float(d.max()):.3g}, {near:.6f} of pixels within "
+            f"{REPLAY_MAX}")
+        if min(same.values()) < AGREE_FRAC or ssr_err > SSR_ABS \
+                or nodes[0] != nodes[1] or not torch.equal(img, base) \
+                or float(d.mean()) >= REPLAY_MEAN or near < AGREE_FRAC:
+            raise RuntimeError("bilinear records disagree: " + results[-1])
+    grads, width, height = {}, 64, 48
+    for place in (dev, torch.device("cpu")):
+        g_scene = scene.to(place)
+        basis = tt.perspective_basis(camera, width, height, device=place)
+        cfg = tt.RenderConfig(width=width, height=height, max_depth=3,
+                              shadow_samples=2, filter="bilinear")
+        diff, rest = tt.partition(g_scene)
+        leaves = {k: v.clone().requires_grad_() for k, v in diff.items()}
+        gen = torch.Generator().manual_seed(0)
+        w = torch.rand(height, width, 3, generator=gen).to(place)
+        if place.type == "cuda":   # the bilinear gradient's path
+            render_megakernel_record.launches = 0
+            render_megakernel_record.bilinear_launches = 0
+        img = tt.render_megakernel_diff(tt.combine(leaves, rest),
+                                        assets.to(place), basis, cfg)
+        g = torch.autograd.grad((img * w).sum(), list(leaves.values()))
+        if place.type == "cuda":
+            k5b_launches = render_megakernel_record.bilinear_launches
+        grads[place.type] = dict(zip(leaves, (x.cpu() for x in g)))
+    worst = 0.0
+    for name, ours in grads["cuda"].items():
+        want = grads["cpu"][name]
+        if not bool(torch.isfinite(ours).all()):
+            raise RuntimeError(f"bilinear gradient of {name} is not finite")
+        if want.numel():
+            err = float((ours - want).abs().max()) / max(
+                float(want.abs().max()), 1e-3)
+            worst = max(worst, err)
+            if err > GRAD_ATOL:
+                raise RuntimeError(f"bilinear gradient of {name} on the card "
+                                   f"is {err:.3g} * max|g| off the CPU's")
+    spatial = float(grads["cuda"]["plane_point"].abs().sum())
+    if k5b_launches != 1 or not spatial > 0:
+        raise RuntimeError(f"render_megakernel_diff(filter='bilinear') made "
+                           f"{k5b_launches} launches; |d plane_point| "
+                           f"{spatial}")
+    packed, cfg, _ = inputs(128, 96, 3, 0)
+    k5b_ms = cuda_time_ms(lambda: render_megakernel_record(packed, assets,
+                                                           cfg))[0]
+    k5b_plain_ms = cuda_time_ms(lambda: render_megakernel_record_reference(
+        packed, assets, cfg), warmup=0, iters=1)[0]
+    _, recs = render_megakernel_record(packed, assets, cfg)
+    k5b_bound, k5b_by, _ = bound(recs, packed, cfg, True)
+    results.append(
+        f"gradient {width}x{height} d3 ss2 through {k5b_launches} bilinear "
+        f"K5 launch: card vs CPU worst leaf {worst:.3g} * max|g| (bar "
+        f"{GRAD_ATOL}), sum|d plane_point| {spatial:.4g}; K5 bilinear "
+        f"128x96 d3 ss0 {k5b_ms:.4f} ms, plain {k5b_plain_ms:.1f} ms (one "
+        f"run), bound {k5b_bound:.5f} ms ({k5b_by})")
+    phase(15, "bilinear records, replay and gradient",
+          f"{card}: " + "; ".join(results))
+    source = "tpuray_torch/kernels/csrc/megakernel.cu"
+    return ({"name": "megakernel_bilinear", "route": "cuda",
+             "source": source,
+             "replaces": "tpuray/kernels/pallas_trace.py:1882",
+             "launches": k2_launches, "max_abs_err": k2_err,
+             "ms": times[(800, 600, 15, "bilinear")],
+             "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+             "bound_by": k2_by, "library_ms": None,
+             "shape": "800x600 d15 ss2"},
+            {"name": "megakernel_record_bilinear", "route": "cuda",
+             "source": source,
+             "replaces": "tpuray/kernels/pallas_trace.py:2665",
+             "launches": k5b_launches, "max_abs_err": k5b_err,
+             "ms": k5b_ms, "plain_ms": k5b_plain_ms, "bound_ms": k5b_bound,
+             "bound_by": k5b_by, "library_ms": None,
+             "shape": "128x96 d3 ss0; launches: one bilinear gradient"})
+
+
+def query_checks(tables, o, d):
+    """K6 against its plain version on the rays (o, d), the blocker tests
+    with ranges past or short of the closest hits (``query_tmax``):
+    (tmax, max |t - t_plain| over hits, a summary); raises on a
+    disagreement: another hit set, t beyond 1e-6 relative, another winner,
+    another blocked flag, another count where not blocked."""
+    from tpuray_torch.kernels import query
+
+    t, wid = query.tri_query_closest(tables, o, d)
+    t_ref, wid_ref = query.tri_query_closest_reference(tables, o, d)
+    tmax = query_tmax(t_ref)
+    hit = torch.isfinite(t_ref)
+    if not torch.equal(torch.isfinite(t), hit):
+        raise RuntimeError("K6 closest: another hit set than the plain "
+                           "version's")
+    err = float((t - t_ref)[hit].abs().max()) if bool(hit.any()) else 0.0
+    rel = (float(((t - t_ref).abs() / t_ref.abs())[hit].max())
+           if bool(hit.any()) else 0.0)
+    if rel > 1e-6 or not torch.equal(wid, wid_ref):
+        raise RuntimeError(f"K6 closest: t {rel:.3g} relative off, or other "
+                           "winners")
+    text = [f"{o.shape[0]:,} rays, {int(hit.sum()):,} hits, t max "
+            f"{rel:.3g} relative, ids equal"]
+    for inclusive in (False, True):
+        blocked, count = query.tri_query_blocker(tables, o, d, tmax,
+                                                 inclusive)
+        b_ref, c_ref = query.tri_query_blocker_reference(tables, o, d, tmax,
+                                                         inclusive)
+        if not torch.equal(blocked, b_ref) \
+                or not torch.equal(count[~b_ref], c_ref[~b_ref]):
+            raise RuntimeError(f"K6 blocker (inclusive={inclusive}) "
+                               "disagrees with the plain version")
+        text.append(f"{'inclusive' if inclusive else 'strict'} blocker: "
+                    f"{int(blocked.sum()):,} blocked, equal")
+    torch.cuda.synchronize()
+    return tmax, err, ", ".join(text)
+
+
+def query_rays(tables, n, seed=7):
+    """n rays from random origins, every other one aimed near a random
+    triangle's centre, every 37th with a zero direction."""
+    gen = torch.Generator().manual_seed(seed)
+    dev = tables.geom.device
+    o = (torch.rand(n, 3, generator=gen) * 6.0 - 3.0).to(dev)
+    d = torch.randn(n, 3, generator=gen).to(dev)
+    centre = tables.v0 + (tables.e1 + tables.e2) / 3.0
+    pick = torch.randint(0, tables.n, (n // 2,), generator=gen).to(dev)
+    d[1::2] = centre[pick] - o[1::2] + 0.05 * torch.randn(
+        n // 2, 3, generator=gen).to(dev)
+    d[::37] = 0.0
+    return o.contiguous(), d.contiguous()
+
+
+def query_tmax(t):
+    """Blocker ranges past or short of the closest hits t (4 on a miss),
+    every 11th ray inactive (0)."""
+    scale = torch.where(torch.arange(t.shape[0], device=t.device) % 4 < 2,
+                        torch.full_like(t, 1.5), torch.full_like(t, 0.5))
+    tmax = torch.where(torch.isfinite(t), t * scale, torch.full_like(t, 4.0))
+    tmax[::11] = 0.0
+    return tmax.contiguous()
+
+
+def query_phase(tt, dev, card, scenes, camera):
+    """Phase 16: K6 against its plain version, times and bounds; returns
+    the closest and blocker entries (launches filled in by phase 17)."""
+    from tpuray_torch.kernels import query
+    from tpuray_torch.kernels.triblocks import build_query_tables
+    from tpuray_torch.utils.metrics import cuda_time_ms
+
+    results, entries, err = [], {}, 0.0
+    basis = tt.perspective_basis(camera, 512, 384, device=dev)
+    po, pd = (x.contiguous() for x in tt.generate_rays(basis, 512, 384))
+    for key in ("k3", "k4"):
+        scene = scenes[key]
+        tables = build_query_tables(scene.tri_v0, scene.tri_v1, scene.tri_v2,
+                                    scene.tri_mat.transparent)
+        for what, (o, d) in (("random", query_rays(tables,
+                                                   QUERY_RANDOM_RAYS)),
+                             ("512x384 primary", (po, pd))):
+            tmax, e, text = query_checks(tables, o, d)
+            err = max(err, e)
+            results.append(f"{tables.n:,} triangles, {what}: {text}")
+        timed = {}
+        for mode, kernel, plain, args in (
+                ("closest", query.tri_query_closest,
+                 query.tri_query_closest_reference, (po, pd)),
+                ("blocker", query.tri_query_blocker,
+                 query.tri_query_blocker_reference, (po, pd, tmax))):
+            ms = cuda_time_ms(lambda: kernel(tables, *args))[0]
+            # the plain version is timed where the entries are (7,424)
+            plain_ms = (cuda_time_ms(lambda: plain(tables, *args), warmup=0,
+                                     iters=1)[0] if key == "k3" else None)
+            walks = TreeSearch(tables)
+            if mode == "closest":
+                inf = torch.full_like(tmax, float("inf"))
+                walks.closest(po, pd, -inf, inf)
+            else:
+                walks.blocked(po, pd, tmax)
+            flops = walks.boxes * BOX_FLOPS + walks.pairs * MT_FLOPS
+            nbytes = po.shape[0] * QUERY_RAY_BYTES[mode] + 4 * (
+                tables.geom.numel() + tables.node.numel())
+            t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+            bound_ms = max(t_ops, t_bytes) * 1e3
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            timed[mode] = (ms, plain_ms, bound_ms, bound_by)
+            plain_text = (f", plain {plain_ms:.1f} ms (one run)"
+                          if plain_ms else "")
+            results.append(
+                f"{tables.n:,} triangles, {mode} on 512x384 primary rays: "
+                f"kernel {ms:.4f} ms{plain_text}, bound {bound_ms:.5f} ms "
+                f"({bound_by}; {walks.boxes:,} box tests, {walks.pairs:,} "
+                "pairs)")
+        entries[key] = timed
+        torch.cuda.empty_cache()
+    phase(16, "triangle-query kernel vs plain", f"{card}: "
+          + "; ".join(results))
+    out = []
+    for mode in ("closest", "blocker"):
+        ms, plain_ms, bound_ms, bound_by = entries["k3"][mode]
+        out.append({"name": f"tri_query_{mode}", "route": "cuda",
+                    "source": "tpuray_torch/kernels/csrc/tri_query.cu",
+                    "replaces": "tpuray/kernels/pallas_trace.py:2766",
+                    "launches": None, "max_abs_err": err if mode ==
+                    "closest" else 0.0, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": None,
+                    "shape": "7,424 triangles, 512x384 primary rays"})
+    return out
+
+
+def tracer_phases(tt, dev, card, scene, assets, camera, mesh_specs,
+                  mesh_scenes, app_inputs, asset_args, query_entries):
+    """Phases 17-18: the tracer engine on the card, its apps; fills in the
+    triangle-query kernel's launches on the tracer's mesh render."""
+    import warnings
+
+    from tpuray_torch.apps import invrender, raypng
+    from tpuray_torch.kernels import query
+    from tpuray_torch.kernels.megakernel import (render_megakernel,
+                                                 render_megakernel_record)
+    from tpuray_torch.kernels.triblocks import build_query_tables
+    from tpuray_torch.meshes import mesh_benchmark_scene
+
+    def reset():
+        render_megakernel.launches = render_megakernel_record.launches = 0
+        query.tri_query_closest.launches = 0
+        query.tri_query_blocker.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return (render_megakernel.launches + render_megakernel_record.launches,
+                query.tri_query_closest.launches,
+                query.tri_query_blocker.launches)
+
+    # -- 17. render(engine='tracer'), raypng --engine tracer, above the cap --
+    results = []
+    cfg = tt.RenderConfig(width=512, height=384, max_depth=3,
+                          shadow_samples=2)
+    for name, s in (("canonical", scene), ("7,424 triangles",
+                                           mesh_scenes["k3"])):
+        reset()
+        t0 = time.perf_counter()
+        img = tt.render(s, assets, camera, cfg.replace(engine="tracer"))
+        mega, closest, blocker = counts()
+        wall = time.perf_counter() - t0
+        want = tt.render(s, assets, camera, cfg.replace(engine="megakernel"))
+        diff = (img - want).abs().amax(-1)
+        within = float((diff < TRACER_AGREE_ABS).float().mean())
+        results.append(f"{name} 512x384 d3: tracer {wall:.3f} s (host "
+                       f"clock), {closest} closest and {blocker} blocker "
+                       f"query launches, {mega} megakernel launches; "
+                       f"{within:.6f} of pixels within {TRACER_AGREE_ABS} "
+                       "of the megakernel's")
+        wants_k6 = s.num_triangles > 0
+        if mega or within < TRACER_AGREE_FRAC \
+                or bool(closest and blocker) != wants_k6 \
+                or not bool(torch.isfinite(img).all()):
+            raise RuntimeError("the tracer engine failed: " + results[-1])
+        if wants_k6:
+            for entry, n in zip(query_entries, (closest, blocker)):
+                entry["launches"] = n
+                entry["shape"] += ("; launches: render(engine='tracer') at "
+                                   "512x384 d3")
+            results.append(profile_step(
+                lambda: tt.render(s, assets, camera,
+                                  cfg.replace(engine="tracer")),
+                f"tracer render, {name} 512x384 d3"))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "tracer.png")
+        argv = ["--width", "800", "--height", "600", "--depth", "15",
+                "--device", "cuda", "--engine", "tracer", "--selfcheck",
+                "--out", out] + app_inputs
+        reset()
+        t0 = time.perf_counter()
+        res = raypng.main(argv)
+        wall = time.perf_counter() - t0
+        mega, _, _ = counts()
+        k1 = tt.quantize_image(tt.render(
+            scene, assets, camera, tt.RenderConfig(engine="megakernel")),
+            800, 600).cpu().numpy()
+        stats = tt.image_diff_stats(res["image"], k1)
+        results.append(f"raypng --engine tracer 800x600 d15: whole run "
+                       f"{wall:.3f} s, {res['report']}, {mega} megakernel "
+                       f"launches; vs K1's image {stats}")
+        if mega or stats.frac_within_1 <= U8_WITHIN_1 \
+                or stats.mean_abs >= U8_MEAN:
+            raise RuntimeError("raypng --engine tracer failed: "
+                               + results[-1])
+    t0 = time.perf_counter()
+    order, res_ = MESH_ABOVE_CAP
+    big = tt.build_scene(mesh_benchmark_scene(order, torus_res=res_), dev)
+    build_s = time.perf_counter() - t0
+    reset()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        img = tt.render(big, assets, camera, cfg)
+    mega, closest, blocker = counts()
+    wall = time.perf_counter() - t0
+    warned = any(issubclass(w.category, RuntimeWarning) for w in caught)
+    tables = build_query_tables(big.tri_v0, big.tri_v1, big.tri_v2,
+                                big.tri_mat.transparent)
+    basis = tt.perspective_basis(camera, 512, 384, device=dev)
+    o, d = tt.generate_rays(basis, 512, 384)
+    step = o.shape[0] // ABOVE_CAP_CHECK_RAYS
+    o, d = o[::step].contiguous(), d[::step].contiguous()
+    _, _, text = query_checks(tables, o, d)
+    results.append(f"{big.num_triangles:,} triangles (built in {build_s:.1f} "
+                   f"s), engine='auto' 512x384 d3: RuntimeWarning {warned}, "
+                   f"tracer {wall:.3f} s, {closest} closest and {blocker} "
+                   f"blocker query launches, {mega} megakernel launches; K6 "
+                   f"vs plain on {text}")
+    if not warned or mega or not (closest and blocker) \
+            or not bool(torch.isfinite(img).all()):
+        raise RuntimeError("the scene above the cap did not go through the "
+                           "tracer: " + results[-1])
+    del big, tables, img
+    torch.cuda.empty_cache()
+    phase(17, "tracer engine", f"{card}: " + "; ".join(results))
+
+    # -- 18. invrender --engine tracer --
+    results = []
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_path = os.path.join(tmp, "mesh_k3.map")
+        tt.dump_scene(mesh_path, mesh_specs["k3"])
+        for what, steps, scene_args in (
+                ("canonical", TRACER_INVRENDER_STEPS, app_inputs),
+                ("7,424-triangle archive", TRACER_MESH_STEPS,
+                 ["--scene", mesh_path] + asset_args)):
+            argv = ["--engine", "tracer", "--steps", str(steps), "--width",
+                    "128", "--height", "96", "--depth", "3", "--device",
+                    "cuda", "--every", "5", "--checkpoint",
+                    os.path.join(tmp, "tracer.pt")] + scene_args
+            reset()
+            res = invrender.main(argv)
+            mega, closest, blocker = counts()
+            losses = res["losses"]
+            results.append(
+                f"{what}: 128x96 d3 ss0, {steps} steps, loss "
+                f"{losses[0]:.5f} -> {losses[-1]:.5f}, "
+                f"{res['train_seconds'] / res['steps'] * 1e3:.1f} ms per "
+                f"step (host clock, first step included), {closest} closest "
+                f"and {blocker} blocker query launches, {mega} megakernel "
+                "launches")
+            wants_k6 = "triangle" in what
+            if mega or not losses[-1] < losses[0] \
+                    or bool(closest and blocker) != wants_k6 \
+                    or not all(bool(torch.isfinite(v).all())
+                               for v in res["params"].values()):
+                raise RuntimeError("invrender --engine tracer failed: "
+                                   + results[-1])
+    phase(18, "invrender --engine tracer", f"{card}: " + "; ".join(results))
 
 
 def write_inputs(tt, tmp, tex, sky):
@@ -614,12 +1141,9 @@ def main():
     # -- 2. build --
     t0 = time.perf_counter()
     lib = build.load_library()
-    ptxas = [ln.strip() for ln in lib.log.splitlines()
-             if "registers" in ln or "stack frame" in ln
-             or "Compiling entry" in ln]
     phase(2, "build", f"{os.path.relpath(lib.path)} in "
                       f"{time.perf_counter() - t0:.1f} s; "
-                      f"{' | '.join(ptxas)}")
+                      f"{' | '.join(ptxas_figures(lib.log))}")
 
     mounted = os.path.exists(os.path.join(REFERENCE_DIR, "scenes",
                                           "render.map"))
@@ -947,14 +1471,21 @@ def main():
                          " MiB)")
         torch.cuda.empty_cache()
     for width, height in ((128, 96), (512, 384)):
-        texts.append(profile_step(trainer_for(width, height, 3, 0)[0],
-                                  f"{width}x{height} d3 ss0"))
+        trainer = trainer_for(width, height, 3, 0)[0]
+        texts.append(profile_step(lambda: trainer.step(True),
+                                  f"step {width}x{height} d3 ss0"))
     phase(9, "timing", f"{card}: " + "; ".join(texts))
 
     with tempfile.TemporaryDirectory() as tmp:
-        asset_args = [] if mounted else write_inputs(tt, tmp, tex, sky)[2:]
-        k3_entry, k4_entry = mesh_phases(tt, dev, card, assets, camera,
-                                         asset_args)
+        app_inputs = [] if mounted else write_inputs(tt, tmp, tex, sky)
+        asset_args = app_inputs[2:]
+        k3_entry, k4_entry, mesh_specs, mesh_scenes = mesh_phases(
+            tt, dev, card, assets, camera, asset_args)
+        k2_entry, k5b_entry = bilinear_phases(tt, dev, card, scene, assets,
+                                              camera, lib.log)
+        query_entries = query_phase(tt, dev, card, mesh_scenes, camera)
+        tracer_phases(tt, dev, card, scene, assets, camera, mesh_specs,
+                      mesh_scenes, app_inputs, asset_args, query_entries)
 
     print(json.dumps({"kernels": [{
         "name": "megakernel",
@@ -982,7 +1513,7 @@ def main():
         "bound_by": k5_by,
         "library_ms": None,
         "shape": "128x96 d3 ss0",
-    }]}), flush=True)
+    }, k2_entry, k5b_entry, *query_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,8 @@
-"""The CUDA megakernel on the card, in its base and record instantiations:
-built with nvcc from the repository's sources, held against the plain
-PyTorch versions, the gradient through ``render_megakernel_diff`` against
-the same on the CPU, and the wrappers' refusals.  Every test needs an
+"""The CUDA kernels on the card: the megakernel in its base, triangle,
+bilinear and record instantiations and the triangle-query kernel, built
+with nvcc from the repository's sources and held against their plain
+PyTorch versions; the gradient through ``render_megakernel_diff`` and the
+whole-image tracer against the same on the CPU; the wrappers' refusals.  Every test needs an
 NVIDIA GPU and the CUDA toolkit and skips without them (marker ``cuda``);
 on the card run ``python -m pytest tests/test_torch_cuda.py -q``."""
 import dataclasses
@@ -181,6 +182,127 @@ def test_mesh_diff_backward_on_the_card_matches_the_cpu(cuda):
         assert float((ours - want).abs().max()) <= 2e-2 * scale, name
 
 
+def test_bilinear_kernel_matches_plain_version(cuda):
+    """K2: the bilinear instantiation against the plain version's bilinear
+    fetches (the nearest bar), and different from the nearest image."""
+    packed, assets, cfg = _inputs(cuda)
+    cfg = cfg.replace(filter="bilinear")
+    before = render_megakernel.bilinear_launches
+    got = render_megakernel(packed, assets, cfg)
+    torch.cuda.synchronize()
+    assert render_megakernel.bilinear_launches == before + 1
+    want = render_megakernel_reference(packed, assets, cfg)
+    diff = (got - want).abs()
+    assert (diff.amax(-1) < 1e-3).float().mean() >= 0.999
+    assert float(diff.mean()) < 1e-4
+    nearest = render_megakernel(packed, assets, cfg.replace(filter="nearest"))
+    assert float((got - nearest).abs().max()) > 1e-3
+
+
+def test_bilinear_record_kernel_matches_plain_version(cuda):
+    """K5 with bilinear records: 4 picks per node, equal to the plain
+    version's; the replay reproduces the image."""
+    packed, assets, cfg = _inputs(cuda, 128, 96, 3)
+    cfg = cfg.replace(filter="bilinear")
+    img, rec = render_megakernel_record(packed, assets, cfg)
+    want, plain = render_megakernel_record_reference(packed, assets, cfg)
+    assert rec["pick"].shape == (cfg.resolved_record_slots(), 4, 128 * 96)
+    assert torch.equal(img, render_megakernel(packed, assets, cfg))
+    assert float((img - want).abs().max()) < 1e-3
+    for key in ("rec", "wid", "pick"):
+        same = (rec[key] == plain[key]).reshape(
+            -1, 128 * 96).all(0).float().mean()
+        assert float(same) >= 0.999, key
+    assert float((rec["ssr"] - plain["ssr"]).abs().max()) <= 1e-5
+    scene = tt.build_scene(tt.canonical_scene_spec(), cuda)
+    basis = tt.perspective_basis(tt.Camera(*GOLDEN_CAMERA), 128, 96,
+                                 device=cuda)
+    d = (tt.replay_render(scene, assets, basis, rec, cfg) - img).abs()
+    assert float(d.mean()) < 1e-3 and float(d.max()) < 5e-2
+
+
+def query_rays(tables, device, n=300, seed=7):
+    """``n`` rays from random origins, every other one in a random
+    direction and the rest aimed near a random triangle's centre, some with
+    a zero direction; and tmax values past the plain version's closest hits
+    (4 on a miss, 0 for an inactive ray)."""
+    from tpuray_torch.kernels.query import tri_query_closest_reference
+
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-3.0, 3.0, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    centre = ((tables.v0 + (tables.e1 + tables.e2) / 3.0).cpu().numpy())
+    aim = centre[rng.integers(0, tables.n, n // 2)]
+    d[1::2] = aim + rng.normal(scale=0.05, size=aim.shape) - o[1::2]
+    d[::37] = 0.0
+    o, d = torch.from_numpy(o).to(device), torch.from_numpy(d).to(device)
+    t, _ = tri_query_closest_reference(tables, o, d)
+    tmax = torch.where(torch.isfinite(t), t * 1.5, torch.full_like(t, 4.0))
+    tmax[::11] = 0.0      # inactive rays
+    return o, d, tmax.contiguous()
+
+
+def test_query_kernels_match_plain_versions(cuda):
+    """K6 against brute force: the same hits and winners, t to 1e-6
+    relative, blocked flags away from tmax and counts where not blocked,
+    on a mesh with transparent triangles (mesh_benchmark_scene(1))."""
+    from tpuray_torch.kernels import query
+    from tpuray_torch.kernels.triblocks import build_query_tables
+    from tpuray_torch.meshes import mesh_benchmark_scene
+
+    scene = tt.build_scene(mesh_benchmark_scene(1), cuda)
+    transp = scene.tri_mat.transparent.clone()
+    transp[::3] = True
+    tables = build_query_tables(scene.tri_v0, scene.tri_v1, scene.tri_v2,
+                                transp)
+    o, d, tmax = query_rays(tables, cuda)
+    before = query.tri_query_closest.launches
+    t, wid = query.tri_query_closest(tables, o, d)
+    torch.cuda.synchronize()
+    assert query.tri_query_closest.launches == before + 1
+    t_ref, wid_ref = query.tri_query_closest_reference(tables, o, d)
+    hit = torch.isfinite(t_ref)
+    assert torch.equal(torch.isfinite(t), hit) and int(hit.sum()) > 100
+    assert float(((t - t_ref).abs() / t_ref.abs())[hit].max()) <= 1e-6
+    assert torch.equal(wid, wid_ref)
+    for inclusive in (False, True):
+        blocked, count = query.tri_query_blocker(tables, o, d, tmax,
+                                                 inclusive)
+        b_ref, c_ref = query.tri_query_blocker_reference(tables, o, d, tmax,
+                                                         inclusive)
+        assert torch.equal(blocked, b_ref)
+        assert torch.equal(count[~b_ref], c_ref[~b_ref])
+        assert not bool(blocked[tmax <= 0].any())
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["canonical", "mesh"])
+def test_tracer_on_the_card_matches_the_cpu(cuda, mesh):
+    """The whole-image tracer on the card (triangle queries through the
+    query kernel) against the same on the CPU (brute force), at the
+    megakernel's bar: the card's sin, cos and sqrt may round otherwise."""
+    from tpuray_torch.kernels import query
+
+    imgs = {}
+    for dev in (cuda, torch.device("cpu")):
+        if mesh:
+            scene, basis, assets, cfg = _mesh_inputs(dev, 64, 48)
+        else:
+            scene = tt.build_scene(tt.canonical_scene_spec(), dev)
+            basis = tt.perspective_basis(tt.Camera(*GOLDEN_CAMERA), 64, 48,
+                                         device=dev)
+            assets = tt.assets_from_arrays(
+                *tt.random_asset_arrays(0, 256, 256), dev)
+            cfg = tt.RenderConfig(width=64, height=48, max_depth=3)
+        before = query.tri_query_closest.launches
+        imgs[dev.type] = tt.render_from_basis_tracer(
+            scene, assets, basis, cfg.replace(engine="tracer")).cpu()
+        launched = query.tri_query_closest.launches - before
+        assert (launched > 0) == (mesh and dev.type == "cuda")
+    diff = (imgs["cuda"] - imgs["cpu"]).abs()
+    assert (diff.amax(-1) < 1e-3).float().mean() >= 0.999
+    assert float(diff.mean()) < 1e-4
+
+
 def test_record_wrapper_refusals_on_the_card(cuda):
     check_record_refusals(cuda)
 
@@ -212,8 +334,8 @@ def many_triangles(scene, n):
 def check_record_refusals(device):
     """More than 64 solids or 62 lights (the hit code's ranges), record
     slots outside [1, 64] (6-bit parent slots), more than 524,288 triangles
-    (the cap of the triangle path) and bilinear filtering (not ported yet)
-    are refused; the caps themselves work."""
+    (the cap of the triangle path) and an unknown filter are refused; the
+    caps themselves work, and bilinear records hold 4 picks per node."""
     basis = tt.perspective_basis(tt.Camera(*GOLDEN_CAMERA), 8, 4,
                                  device=device)
     assets = tt.assets_from_arrays(*tt.random_asset_arrays(0), device)
@@ -242,5 +364,8 @@ def check_record_refusals(device):
     packed = pack_scene(many_triangles(scene, 100), basis)
     _, records = render_megakernel_record(packed, assets, cfg)
     assert records["wid"].shape == (cfg.resolved_record_slots(), 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.RenderConfig(filter="bilinear", record_slots=8)
+    with pytest.raises(ValueError, match="unknown filter"):
+        tt.RenderConfig(filter="bogus", record_slots=8)
+    _, records = render_megakernel_record(
+        packed, assets, cfg.replace(filter="bilinear", record_slots=8))
+    assert records["pick"].shape == (8, 4, 32)

@@ -194,16 +194,17 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
 
 
 def test_triangles_and_bilinear_are_refused():
-    """More triangles than the cap (the JAX kernel's 524,288, above which
-    the JAX package falls back to a tracer the port does not have yet)
-    raise before any table is built; bilinear filtering is not ported."""
+    """More triangles than the megakernel's cap (the JAX kernel's 524,288,
+    above which ``engine='auto'`` renders with the tracer) raise before any
+    table is built; an unknown filter is refused, bilinear is taken."""
     scene = tt.build_scene(tt.canonical_scene_spec(), "cpu")
     basis = tt.perspective_basis(_camera_pair()[1], 8, 8, device="cpu")
     with pytest.raises(ValueError, match="524,288"):
         pack_scene(many_triangles(scene, TRI_MAX_TRIANGLES + 1), basis)
     assert pack_scene(many_triangles(scene, 1), basis).tris.n == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.RenderConfig(filter="bilinear")
+    with pytest.raises(ValueError, match="unknown filter"):
+        tt.RenderConfig(filter="bogus")
+    assert tt.RenderConfig(filter="bilinear").filter == "bilinear"
 
 
 # ---------------------------------------------------------------------------

@@ -137,6 +137,7 @@ def test_port_imports_neither_jax_nor_tpuray():
             "tpuray_torch.kernels.build, tpuray_torch.utils.metrics, "
             "tpuray_torch.utils.checkpoint, tpuray_torch.meshes, "
             "tpuray_torch.kernels.triblocks, tpuray_torch.utils.kernel_ab, "
+            "tpuray_torch.kernels.trace, tpuray_torch.kernels.query, "
             "chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpuray', 'triton')); "

@@ -1,5 +1,6 @@
 """tpuray_torch: the Whitted raytracer of :mod:`tpuray` in PyTorch, with its
-megakernel hand-written in CUDA for NVIDIA Hopper (H100).
+megakernel and its triangle-query kernel hand-written in CUDA for NVIDIA
+Hopper (H100), and the whole-image tracer in plain PyTorch.
 
 It keeps ``tpuray``'s module names so that each counterpart is easy to
 find, imports neither ``jax`` nor ``tpuray``, and is held against the JAX
@@ -21,11 +22,17 @@ from .diff import (combine, l2_image_loss, partition, render_megakernel_diff,
                    value_and_scene_grad)
 from .io import DiffStats, image_diff_stats, read_png, write_png
 from .kernels.megakernel import (pack_scene, render_megakernel,
+                                 render_megakernel_checked,
                                  render_megakernel_record,
                                  render_megakernel_record_reference,
-                                 render_megakernel_reference)
+                                 render_megakernel_reference,
+                                 render_megakernel_stats)
+from .kernels.query import tri_query_blocker, tri_query_closest
 from .kernels.replay import replay_render
-from .render import quantize_image, render, render_from_basis, render_u8
+from .kernels.trace import trace_rays
+from .render import (megakernel_supported, quantize_image, render,
+                     render_from_basis, render_from_basis_checked,
+                     render_from_basis_tracer, render_u8)
 from .scene import (GLASS, MIRROR, PLASTIC, STONE, LightSpec, MaterialSpec,
                     Materials, PlaneSpec, Scene, SceneSpec, SphereSpec,
                     TriangleSpec, build_scene, canonical_scene_spec,

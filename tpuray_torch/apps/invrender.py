@@ -6,15 +6,18 @@ The target is a render of the true scene (``render.map`` by default); the
 optimization starts from perturbed material parameters (rgb, ambient,
 diffuse, specular and reflectivity of every sphere and plane) and
 perturbed light positions, and recovers them with Adam on the L2 loss
-between display-space images.  Each step renders through
-:func:`diff.render_megakernel_diff`: the record-mode CUDA megakernel
-forward and the replay's backward.  The JAX app's ``xla`` engine (the
-whole-image tracer) is not ported yet, so there is no ``--engine``.
+between display-space images.  With ``--engine megakernel`` (or
+``auto``) each step renders through :func:`diff.render_megakernel_diff`:
+the record-mode CUDA megakernel forward and the replay's backward.  With
+``--engine tracer`` (the JAX app's ``xla`` engine) each step renders
+through the whole-image tracer, ``loop='scan'``, and autograd
+differentiates it (invrender.py:233-236); on the card its triangle queries
+go through the triangle-query kernel.
 
     python -m tpuray_torch.apps.invrender [--steps 300] [--width 128 --height 96]
         [--depth 3] [--shadow-samples 0] [--scene render.map]
-        [--asset-dir assets] [--device cuda] [--checkpoint out/invrender.pt]
-        [--resume]
+        [--asset-dir assets] [--device cuda] [--engine auto|megakernel|tracer]
+        [--checkpoint out/invrender.pt] [--resume]
 
 The optimizer follows the JAX app's optax chain (invrender.py:245-284):
 
@@ -39,11 +42,12 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..camera import Camera, perspective_basis
-from ..config import (GOLDEN_CAMERA_FOCAL, GOLDEN_CAMERA_FOV,
+from ..config import (ENGINES, GOLDEN_CAMERA_FOCAL, GOLDEN_CAMERA_FOV,
                       GOLDEN_CAMERA_LOOKDIR, GOLDEN_CAMERA_ORIGIN,
                       REFERENCE_DIR, RenderConfig)
 from ..diff import combine, l2_image_loss, partition, render_megakernel_diff
 from ..kernels.megakernel import pack_scene, render_megakernel_record
+from ..render import render_from_basis_tracer
 from ..sceneio import load_scene
 from ..textures import REFERENCE_ASSETS, load_default_assets
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
@@ -253,8 +257,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--asset-dir", default=REFERENCE_ASSETS,
                     help="directory holding the four textures and bg/")
     ap.add_argument("--device", default="cuda",
-                    help="torch device; 'cuda' runs the record-mode CUDA "
-                         "megakernel")
+                    help="torch device; 'cuda' runs the CUDA kernels")
+    ap.add_argument("--engine", default="auto", choices=ENGINES,
+                    help="'megakernel' (also 'auto'): the record-mode "
+                         "megakernel and the replay; 'tracer': autograd "
+                         "through the whole-image tracer")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
@@ -262,9 +269,11 @@ def main(argv=None) -> dict:
         raise RuntimeError(f"--device {args.device}: no CUDA device is "
                            "available (pass --device cpu for the plain "
                            "PyTorch version)")
+    tracer = args.engine == "tracer"
     cfg = RenderConfig(width=args.width, height=args.height,
-                       max_depth=args.depth,
-                       shadow_samples=args.shadow_samples)
+                       max_depth=args.depth, chunk_size=0, loop="scan",
+                       shadow_samples=args.shadow_samples,
+                       engine="tracer" if tracer else "megakernel")
     assets = load_default_assets(args.asset_dir, device=device)
     cam = Camera(GOLDEN_CAMERA_ORIGIN, GOLDEN_CAMERA_LOOKDIR,
                  GOLDEN_CAMERA_FOV, GOLDEN_CAMERA_FOCAL)
@@ -273,23 +282,29 @@ def main(argv=None) -> dict:
     truth_params, static = partition(truth)
     mask = optimize_mask(truth_params)
 
-    # preflight: size the node records to the scene's deepest DFS, so the
-    # replay loses no subtree's gradient
-    _, rec0 = render_megakernel_record(pack_scene(truth, basis), assets, cfg)
-    need = int(rec0["max_nodes"])
-    if need > cfg.resolved_record_slots():
-        if need > 64:
-            print(f"warning: scene needs {need} record slots > the 64-slot "
-                  "cap; deep-path gradients will be dropped")
-        cfg = cfg.replace(record_slots=min(need, 64))
-        print(f"record preflight: record_slots -> "
-              f"{cfg.resolved_record_slots()}")
+    if not tracer:
+        # preflight: size the node records to the scene's deepest DFS, so
+        # the replay loses no subtree's gradient
+        _, rec0 = render_megakernel_record(pack_scene(truth, basis), assets,
+                                           cfg)
+        need = int(rec0["max_nodes"])
+        if need > cfg.resolved_record_slots():
+            if need > 64:
+                print(f"warning: scene needs {need} record slots > the "
+                      "64-slot cap; deep-path gradients will be dropped")
+            cfg = cfg.replace(record_slots=min(need, 64))
+            print(f"record preflight: record_slots -> "
+                  f"{cfg.resolved_record_slots()}")
 
     # the loss compares display-space images (clamped to [0, 1], as the
     # reference's output path, raytracing.cl:193): unclamped L2 is
     # dominated by directly seen lights, whose position is a step function
     def render(scene):
-        return render_megakernel_diff(scene, assets, basis, cfg).clamp(0, 1)
+        if tracer:
+            img = render_from_basis_tracer(scene, assets, basis, cfg)
+        else:
+            img = render_megakernel_diff(scene, assets, basis, cfg)
+        return img.clamp(0, 1)
 
     with torch.no_grad():
         target = render(truth)
@@ -308,8 +323,8 @@ def main(argv=None) -> dict:
 
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else str(device))
-    print(f"device={name}  {cfg.width}x{cfg.height} depth={cfg.max_depth}"
-          f"  start param err={err0:.4f}")
+    print(f"device={name}  engine={cfg.engine}  {cfg.width}x{cfg.height} "
+          f"depth={cfg.max_depth}  start param err={err0:.4f}")
     phase1_end = int(args.steps * args.phase1_frac)
     losses = []
     t0 = time.perf_counter()

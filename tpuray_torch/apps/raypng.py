@@ -7,6 +7,11 @@ writes a PNG and can diff it against the reference's committed image.
 
     python -m tpuray_torch.apps.raypng [--scene render.map] [--out out/scene.png]
         [--width 800 --height 600] [--depth 15] [--device cuda] [--compare-golden]
+        [--engine auto|megakernel|tracer] [--chunk-size 65536]
+
+``--engine tracer`` renders with the whole-image tracer (on the card its
+triangle queries go through the triangle-query kernel), in chunks of
+``--chunk-size`` pixels.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import time
 import torch
 
 from ..camera import Camera
-from ..config import (GOLDEN_CAMERA_FOCAL, GOLDEN_CAMERA_FOV,
+from ..config import (ENGINES, GOLDEN_CAMERA_FOCAL, GOLDEN_CAMERA_FOV,
                       GOLDEN_CAMERA_LOOKDIR, GOLDEN_CAMERA_ORIGIN,
                       REFERENCE_DIR, RenderConfig)
 from ..io import GOLDEN_PNG, image_diff_stats, read_png, write_png
@@ -52,7 +57,13 @@ def main(argv=None) -> dict:
                     help="cross-layout cubemap relative to the asset dir "
                          "(the reference also ships bg/lake.png)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device; 'cuda' runs the CUDA megakernel")
+                    help="torch device; 'cuda' runs the CUDA kernels")
+    ap.add_argument("--engine", default="auto", choices=ENGINES,
+                    help="'megakernel', 'tracer', or 'auto': the megakernel "
+                         "where it takes the scene")
+    ap.add_argument("--chunk-size", type=int, default=65536,
+                    help="pixels per traced chunk of the tracer engine "
+                         "(0: the whole image)")
     ap.add_argument("--compare-golden", action="store_true",
                     help="diff the output against the reference's committed "
                          "out/scene.png")
@@ -73,7 +84,8 @@ def main(argv=None) -> dict:
                  GOLDEN_CAMERA_FOV, GOLDEN_CAMERA_FOCAL)
     cfg = RenderConfig(width=args.width, height=args.height,
                        max_depth=args.depth,
-                       shadow_samples=args.shadow_samples)
+                       shadow_samples=args.shadow_samples,
+                       engine=args.engine, chunk_size=args.chunk_size)
 
     rgb, first = _render_once(scene, assets, cam, cfg, device)
     best = first

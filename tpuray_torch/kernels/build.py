@@ -1,9 +1,12 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface (``tpuray_megakernel``,
-``tpuray_megakernel_record``), which is loaded with ``ctypes``.  A library built against PyTorch's headers would take minutes to
-compile; this one takes seconds.  The library goes into ``_build/`` (ignored
+At first use, one ``nvcc`` for each ``csrc/*.cu``, all started together,
+compiles it for Hopper (``sm_90a``) into an object; one more links them into
+a shared library with a plain C interface (``tpuray_megakernel``,
+``tpuray_megakernel_record``, ``tpuray_tri_query_closest``,
+``tpuray_tri_query_blocker``), which is loaded with ``ctypes``.  A library
+built against PyTorch's headers would take minutes to compile; this one
+takes seconds.  The library goes into ``_build/`` (ignored
 by git) under a name that carries a hash of the sources and flags, so it is
 rebuilt only when they change.  Nothing outside this package is compiled.
 """
@@ -31,8 +34,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 # pixels; without it every pixel agrees to 4e-7, for 7-9% more kernel
 # time (1080p depth 4).  -Xptxas -v reports registers, stack and spills.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclasses.dataclass
@@ -80,13 +82,34 @@ def _compile(path: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     cu = [s for s in sources() if s.endswith(".cu")]
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in cu]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for src, obj in zip(cu, objs)]
+    link_cmd = [nvcc, "-shared", "-o", tmp, *objs]
+    log = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate()
+            log.append(out + err)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(proc.args)}\n{err}")
+        link = subprocess.run(link_cmd, capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({link.returncode}): "
+                               f"{' '.join(link_cmd)}\n{link.stderr}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, path)       # atomic: concurrent builders never see half
-    return proc.stdout + proc.stderr
+    return "".join(log)
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,6 +128,7 @@ def load_library() -> KernelLibrary:
         p, i, i,               # skybox, sky_h, sky_w
         i, i, i, i,            # width, height, max_depth, shadow_samples
         fl, fl, fl,            # epsilon, transparent_through, default_n
+        i,                     # bilinear
         p, p]                  # out, stream
     lib.tpuray_megakernel.restype = i
     lib.tpuray_megakernel_record.argtypes = [
@@ -114,10 +138,19 @@ def load_library() -> KernelLibrary:
         p, i, i,               # skybox, sky_h, sky_w
         i, i, i, i,            # width, height, max_depth, shadow_samples
         fl, fl, fl,            # epsilon, transparent_through, default_n
-        i,                     # record slots
+        i, i,                  # bilinear, record slots
         p, p, p, p, p, p,      # out, rec, wid, ssr, pick, max_nodes
         p]                     # stream
     lib.tpuray_megakernel_record.restype = i
+    query = [p, p, i, i,       # triangle geom, node, count, levels
+             p, i, i,          # nodes per level (host), block, fanout
+             i, p, p]          # rays, o, d
+    lib.tpuray_tri_query_closest.argtypes = [*query, p, p, p]  # t, id, stream
+    lib.tpuray_tri_query_closest.restype = i
+    lib.tpuray_tri_query_blocker.argtypes = [
+        *query, p, i,          # tmax, inclusive
+        p, p, p]               # blocked, count, stream
+    lib.tpuray_tri_query_blocker.restype = i
     lib.tpuray_error_string.argtypes = [i]
     lib.tpuray_error_string.restype = ctypes.c_void_p
     return KernelLibrary(path=path, lib=lib, log=log)

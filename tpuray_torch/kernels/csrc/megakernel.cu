@@ -1,25 +1,30 @@
 // Whitted megakernel for NVIDIA Hopper (sm_90a): one thread renders one
 // pixel, start to finish.
 //
-// Replaces: tpuray/kernels/pallas_trace.py, _make_kernel.kernel (:659) with
-// nearest filtering, launched by _pallas_forward (:2314) on 16x128 pixel
-// tiles, plus the XLA texel-event resolve _resolve_events (:2468) that
-// followed it.  Instantiations of one body, megakernel<RECORD, TRIS>:
-//   <false, false>  K1, the base configuration (render_pallas :2452);
-//   <false, true>   K3 and K4, with a triangle table (triangles resident in
-//                   VMEM up to 32,768, or streamed from HBM up to 524,288:
-//                   tri_closest :1196, tri_feeler_multi :1325,
-//                   tri_pair_sum :931, the culls :988-1194, the DMA blocks
-//                   :816-862);
-//   <true, *>       K5, record mode (render_pallas_record :2665): the same
-//                   image plus one record per DFS node for the gradient's
-//                   replay (megakernel.py render_megakernel_record),
-//                   triangle hits as TRI_CODE with the winner's id.
-// The host picks TRIS from the scene's triangle count, so that a scene
-// without triangles runs code that has no triangle walk in it: compiled in,
-// the walk took stack frame and spills (K1 79 -> 80 registers, 800 -> 928
-// bytes, 24 B of spill stores) and 3-8% of K1's and K5's time on scenes
-// that never ran it (PERF.md, PR 3).
+// Replaces: tpuray/kernels/pallas_trace.py, _make_kernel.kernel (:659),
+// launched by _pallas_forward (:2314) on 16x128 pixel tiles, plus the XLA
+// texel-event resolve _resolve_events (:2468) that followed it.
+// Instantiations of one body, megakernel<RECORD, TRIS, BILINEAR>:
+//   <false, false, false>  K1, the base configuration (render_pallas :2452);
+//   <false, true, *>       K3 and K4, with a triangle table (triangles
+//                          resident in VMEM up to 32,768, or streamed from
+//                          HBM up to 524,288: tri_closest :1196,
+//                          tri_feeler_multi :1325, tri_pair_sum :931, the
+//                          culls :988-1194, the DMA blocks :816-862);
+//   <*, *, true>           K2, filter='bilinear' (:1882-1943): 4 weighted
+//                          taps per texel fetch, in primitives.bilinear_taps
+//                          order, sky taps clamped, texture taps wrapped;
+//   <true, *, *>           K5, record mode (render_pallas_record :2665): the
+//                          same image plus one record per DFS node for the
+//                          gradient's replay (megakernel.py
+//                          render_megakernel_record), triangle hits as
+//                          TRI_CODE with the winner's id, 4 texel picks per
+//                          node under BILINEAR.
+// The host picks TRIS from the scene's triangle count and BILINEAR from the
+// filter, so that each configuration runs code with none of the others' in
+// it: compiled in, the triangle walk took stack frame and spills (K1 79 ->
+// 80 registers, 800 -> 928 bytes, 24 B of spill stores) and 3-8% of K1's
+// and K5's time on scenes that never ran it (PERF.md).
 //
 // What bounds it on this card: neither device-memory bytes nor a matrix
 // unit.  The scene is ~0.6 KB and every thread of a warp reads the same
@@ -31,11 +36,14 @@
 // pixels of one warp that take different paths through the reflect /
 // refract tree serialise, and a warp runs as long as its deepest pixel.
 // For K1 ptxas gives 79 registers and an 800-byte stack frame (the ray
-// stack, in local memory) with no spills.  The record instantiations add a
+// stack, in local memory) with no spills.  A bilinear fetch reads 4 texels
+// instead of 1 and adds ~30 operations; it changes neither bound.  The
+// record instantiations add a
 // parent code per stack level, and per node one i32 record, one i32 winner
 // id, one i32 texel pick and nl f32 shadow ratios, stored slot-major
 // ([slot, pixel]) so that the threads of a warp write adjacent words (K5:
-// 80 registers, 864 bytes, no spills).
+// 80 registers, 864 bytes, no spills); under BILINEAR they write 4 picks per
+// node ([slot, tap, pixel]).
 //
 // Triangles (K3/K4 as one path): the TPU kernel ran Moller-Trumbore as
 // bilinear forms on the MXU at bf16x3 and streamed 256-triangle blocks
@@ -44,7 +52,8 @@
 // geometry), and each thread walks an implicit AABB tree (the whole mesh,
 // unions of 8 nodes, blocks of 16 Morton-ordered triangles) with a slab
 // test per node and an f32 Moller-Trumbore test per triangle of a block it
-// enters, read through __ldg as three float4.  The closest-hit walk skips
+// enters, read through __ldg as three float4 (tri_walk.cuh, shared with the
+// triangle-query kernel tri_query.cu).  The closest-hit walk skips
 // every box beyond max(t_light, min(best solid, best triangle)) (:1219),
 // which shrinks as hits land; a shadow feeler stops at its first opaque
 // triangle.  What bounds it is again issue rate and divergence, now of the
@@ -69,8 +78,7 @@
 // with --fmad=false, so that a*b+c rounds twice as in the plain version
 // (build.py).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tri_walk.cuh"
 
 // ---- packed scene layout (megakernel.py pack_scene) ----
 #define MAX_DEPTH_CAP 16
@@ -104,22 +112,8 @@
 #define PC_REFRACT 0x40
 
 // ---- triangle tables (triblocks.py build_tri_tables) ----
-#define TRI_MAX_LEVELS 8
 #define ATTR_STRIDE 16      // unit face normal3, material13
-#define TRI_DET_EPS 1e-7f   // primitives.intersect_triangle's |det| floor
 #define TRI_THROUGH 0.8f    // per transparent triangle (trace.py:385)
-
-struct Tris {
-  int n;                    // triangles; 0: none
-  int levels;               // levels of the AABB tree, root first
-  int block;                // triangles per leaf block
-  int fanout;               // children per node above the blocks
-  const float4* geom;       // [n][3]: (v0, transparent), (e1, 0), (e2, 0)
-  const float* attr;        // [n][ATTR_STRIDE]
-  const float4* node;       // [nodes][2]: (lo, 0), (hi, 0), levels in order
-  int off[TRI_MAX_LEVELS];  // first node of each level
-  int cnt[TRI_MAX_LEVELS];  // nodes of each level
-};
 
 // Outputs of the record instantiation (all null in the base one).  Every
 // element is written by the kernel, unused slots included.
@@ -129,7 +123,8 @@ struct Records {
   int* rec;        // [krec, n_pix] code | parent byte << 8; -1 = no node
   int* wid;        // [krec, n_pix] winning triangle id; -1 = not a triangle
   float* ssr;      // [krec, nl, n_pix] soft-shadow ratio; 0 off solid hits
-  int* pick;       // [krec, n_pix] texel the node fetched; -1 = none
+  int* pick;       // [krec, NP, n_pix] texels the node fetched (NP = 1, or 4
+                   // bilinear taps); -1 = none
   int* max_nodes;  // [1] image-wide max of the true per-pixel node count
 };
 
@@ -137,28 +132,6 @@ struct Records {
 #define INV_PI 0.31830987334251404f
 #define TWO_PI 6.2831854820251465f
 #define PI_F 3.1415927410125732f
-
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 v3(float x, float y, float z) {
-  V3 r;
-  r.x = x;
-  r.y = y;
-  r.z = z;
-  return r;
-}
-__device__ __forceinline__ V3 load3(const float* p) {
-  return v3(__ldg(p), __ldg(p + 1), __ldg(p + 2));
-}
-__device__ __forceinline__ V3 add(V3 a, V3 b) { return v3(a.x + b.x, a.y + b.y, a.z + b.z); }
-__device__ __forceinline__ V3 sub(V3 a, V3 b) { return v3(a.x - b.x, a.y - b.y, a.z - b.z); }
-__device__ __forceinline__ V3 scale(V3 a, float s) { return v3(a.x * s, a.y * s, a.z * s); }
-__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x);
-}
 
 // max(x, lo) that lets NaN through, as jnp.maximum and torch.clamp do
 __device__ __forceinline__ float max_nan(float x, float lo) { return x < lo ? lo : x; }
@@ -198,132 +171,6 @@ __device__ __forceinline__ bool plane_t(V3 normal, V3 point, V3 p, V3 q, float& 
   return b != 0.0f && t > 0.0f;
 }
 
-// Moller-Trumbore on triangle g (primitives.intersect_triangle_edges, the
-// same operations in the same order): double-faced, |det| <= 1e-7 rejected
-// on the unnormalised det, u >= 0, v >= 0, u + v <= 1, t > 0.  The early
-// returns reject only what the full predicate rejects (u > 1 with v >= 0
-// gives u + v > 1 in f32 too).
-__device__ __forceinline__ bool tri_t(const float4* g, V3 o, V3 d, float& t, bool& transp) {
-  const float4 a = __ldg(g), b = __ldg(g + 1), c = __ldg(g + 2);
-  const V3 e1 = v3(b.x, b.y, b.z), e2 = v3(c.x, c.y, c.z);
-  const V3 pvec = cross(d, e2);
-  const float det = dot(e1, pvec);
-  if (!(fabsf(det) > TRI_DET_EPS)) return false;
-  const float inv_det = 1.0f / det;
-  const V3 tvec = sub(o, v3(a.x, a.y, a.z));
-  const float u = dot(tvec, pvec) * inv_det;
-  if (!(u >= 0.0f) || u > 1.0f) return false;
-  const V3 qvec = cross(tvec, e1);
-  const float v = dot(d, qvec) * inv_det;
-  if (!(v >= 0.0f) || !(u + v <= 1.0f)) return false;
-  t = dot(e2, qvec) * inv_det;
-  transp = a.w > 0.5f;
-  return t > 0.0f;
-}
-
-// Does the segment [0, bound] of the ray (o, 1/d) meet box k?  The boxes
-// are grown on the host (triblocks.AABB_PAD), so that rounding here never
-// rejects a box whose triangle tri_t hits.
-__device__ __forceinline__ bool box_hit(const float4* node, int k, V3 o, V3 inv, float bound) {
-  const float4 lo = __ldg(node + 2 * k), hi = __ldg(node + 2 * k + 1);
-  float t0 = (lo.x - o.x) * inv.x, t1 = (hi.x - o.x) * inv.x;
-  float tmn = fmaxf(0.0f, fminf(t0, t1)), tmx = fminf(bound, fmaxf(t0, t1));
-  t0 = (lo.y - o.y) * inv.y;
-  t1 = (hi.y - o.y) * inv.y;
-  tmn = fmaxf(tmn, fminf(t0, t1));
-  tmx = fminf(tmx, fmaxf(t0, t1));
-  t0 = (lo.z - o.z) * inv.z;
-  t1 = (hi.z - o.z) * inv.z;
-  tmn = fmaxf(tmn, fminf(t0, t1));
-  tmx = fminf(tmx, fmaxf(t0, t1));
-  return tmn <= tmx;
-}
-
-// 1/x with near-zero components clamped to 1e-12 (pallas_trace.py tri_inv3),
-// which only widens a slab
-__device__ __forceinline__ float safe_inv(float x) { return 1.0f / (fabsf(x) < 1e-12f ? 1e-12f : x); }
-
-// Walk the AABB tree depth first, children in order, so blocks and their
-// triangles come in id order; a node whose box the segment [0, bound()]
-// misses is skipped with its subtree.  leaf(first, last) tests triangles
-// [first, last) and returns true to stop the walk.  The tree is implicit
-// (child j of node i is node i * fanout + j of the next level), so the walk
-// needs no stack: after a leaf or a miss it climbs while at a last child,
-// then steps to the next sibling.
-template <class Bound, class Leaf>
-__device__ __forceinline__ void tri_walk(const Tris& T, V3 o, V3 d, Bound bound, Leaf leaf) {
-  const V3 inv = v3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
-  const int last = T.levels - 1;
-  int l = 0, i = 0;
-  for (;;) {
-    if (box_hit(T.node, T.off[l] + i, o, inv, bound())) {
-      if (l < last) {
-        ++l;
-        i *= T.fanout;
-        continue;
-      }
-      const int first = i * T.block;
-      if (leaf(first, min(first + T.block, T.n))) return;
-    }
-    while (l > 0 && (i % T.fanout == T.fanout - 1 || i + 1 == T.cnt[l])) {
-      i /= T.fanout;
-      --l;
-    }
-    if (l == 0) return;
-    ++i;
-  }
-}
-
-// Closest triangle and light occlusion of the ray (o, d) (trace.py:433-488):
-// tbest/wbest the closest hit, the lowest id among equal t; lblock set by an
-// opaque triangle at t <= lt.  Boxes beyond max(lt, min(bt, tbest)) cannot
-// change either answer (lt no longer counts once the light is blocked).
-__device__ __forceinline__ void tri_closest(const Tris& T, V3 o, V3 d, float lt, float bt,
-                                            float& tbest, int& wbest, bool& lblock) {
-  const float lt_seg = isfinite(lt) ? lt : 0.0f;
-  tri_walk(
-      T, o, d,
-      [&] {
-        const float b = fminf(bt, tbest);
-        return lblock ? b : fmaxf(lt_seg, b);
-      },
-      [&](int first, int last) {
-        for (int k = first; k < last; ++k) {
-          float t;
-          bool transp;
-          if (!tri_t(T.geom + 3 * k, o, d, t, transp)) continue;
-          if (t < tbest) {
-            tbest = t;
-            wbest = k;
-          }
-          if (!transp && t <= lt) lblock = true;
-        }
-        return false;
-      });
-}
-
-// Shadow feeler from p along q (trace.py:342-386): true at the first opaque
-// triangle before tmax; counts the transparent ones crossed until then.
-__device__ __forceinline__ bool tri_feeler(const Tris& T, V3 p, V3 q, float tmax, int& crossed) {
-  bool blocked = false;
-  tri_walk(
-      T, p, q, [&] { return tmax; },
-      [&](int first, int last) {
-        for (int k = first; k < last; ++k) {
-          float t;
-          bool transp;
-          if (!tri_t(T.geom + 3 * k, p, q, t, transp) || !(t < tmax)) continue;
-          if (!transp) {
-            blocked = true;
-            return true;
-          }
-          ++crossed;
-        }
-        return false;
-      });
-  return blocked;
-}
-
 // xorshift32 (primitives.cl:116-125); the sample is built as the TPU kernel
 // builds it (pallas_trace.py:499): int32 bits -> f32, + 2^32 if negative,
 // then / 2^31 * 2, i.e. [0, 4).
@@ -336,13 +183,16 @@ __device__ __forceinline__ float xorshift32(uint32_t& x) {
   return fx / 2147483648.0f * 2.0f;
 }
 
-// direction -> texel in the 4x3-cross cubemap (primitives.cl:14-109); the
-// six blocks are not exclusive, the later one wins
-__device__ __forceinline__ void map_to_cube(V3 d, int face, int& u, int& v) {
+// the 4x3-cross cubemap's face fractions (fu, fv) and texel shifts (su, sv)
+// of a direction (primitives.cl:14-109); the six blocks are not exclusive,
+// the later one wins
+__device__ __forceinline__ void cube_face(V3 d, int face, float& fu, float& fv, int& su,
+                                          int& sv) {
   float ax = fabsf(d.x), ay = fabsf(d.y), az = fabsf(d.z);
   bool xp = d.x > 0.0f, yp = d.y > 0.0f, zp = d.z > 0.0f;
   float m = 1.0f, uc = 0.0f, vc = 0.0f;
-  int su = 0, sv = 0;
+  su = 0;
+  sv = 0;
   if (xp && ax >= ay && ax >= az) { m = ax; uc = -d.z; vc = d.y; su = 2 * face; sv = face; }
   if (!xp && ax >= ay && ax >= az) { m = ax; uc = d.z; vc = d.y; su = 0; sv = face; }
   if (yp && ay >= ax && ay >= az) { m = ay; uc = d.x; vc = -d.z; su = face; sv = 2 * face; }
@@ -350,23 +200,95 @@ __device__ __forceinline__ void map_to_cube(V3 d, int face, int& u, int& v) {
   if (zp && az >= ax && az >= ay) { m = az; uc = d.x; vc = d.y; su = face; sv = face; }
   if (!zp && az >= ax && az >= ay) { m = az; uc = -d.x; vc = d.y; su = 3 * face; sv = face; }
   float safe = m != 0.0f ? m : 1.0f;
-  float fu = 0.5f * (uc / safe + 1.0f);
-  float fv = 0.5f * (vc / safe + 1.0f);
+  fu = 0.5f * (uc / safe + 1.0f);
+  fv = 0.5f * (vc / safe + 1.0f);
+}
+
+// direction -> texel in the cubemap (primitives.map_to_cube)
+__device__ __forceinline__ void map_to_cube(V3 d, int face, int& u, int& v) {
+  float fu, fv;
+  int su, sv;
+  cube_face(d, face, fu, fv, su, sv);
   // __float2int_rz: truncate, saturate, NaN -> 0 (as XLA's convert)
   u = su + __float2int_rz(fu * (float)face);
   v = sv + __float2int_rz(fv * (float)face);
 }
 
-// One node's record: its code, its parent byte, triangle id and texel pick.
-__device__ __forceinline__ void write_record(const Records& R, int slot, size_t pix,
-                                             size_t n_pix, int code, int pcode, int wid,
-                                             int pick) {
-  R.rec[slot * n_pix + pix] = code | (pcode << 8);
-  R.wid[slot * n_pix + pix] = wid;
-  R.pick[slot * n_pix + pix] = pick;
+// direction -> continuous cubemap coordinates (primitives.map_to_cube_float)
+__device__ __forceinline__ void map_to_cube_float(V3 d, int face, float& u, float& v) {
+  float fu, fv;
+  int su, sv;
+  cube_face(d, face, fu, fv, su, sv);
+  u = (float)su + fu * (float)face;
+  v = (float)sv + fv * (float)face;
 }
 
-template <bool RECORD, bool TRIS>
+// min(max(x, lo), hi) that lets NaN through (jnp.clip, primitives.clip)
+__device__ __forceinline__ float clip_nan(float x, float lo, float hi) {
+  x = x < lo ? lo : x;
+  return x > hi ? hi : x;
+}
+
+// The 4 bilinear taps of continuous texel coordinates (u, v) in a w x h
+// image (primitives.bilinear_taps): in the order (0, 0), (1, 0), (0, 1),
+// (1, 1), the texel's index y * w + x and its weight.  WRAP: a floor-mod
+// (tiled plane textures); else a clamp (the sky's edges).
+struct Taps {
+  int idx[4];
+  float w[4];
+};
+
+template <bool WRAP>
+__device__ __forceinline__ Taps bilinear_taps(float u, float v, int w, int h) {
+  const float u0f = floorf(u), v0f = floorf(v);
+  const float fu = u - u0f, fv = v - v0f;
+  int x0 = __float2int_rz(u0f), y0 = __float2int_rz(v0f), x1, y1;
+  if (WRAP) {
+    x0 = floor_mod(x0, w);
+    y0 = floor_mod(y0, h);
+    x1 = x0 + 1 == w ? 0 : x0 + 1;
+    y1 = y0 + 1 == h ? 0 : y0 + 1;
+  } else {  // clamp(x0 + 1) without the overflow of x0 + 1
+    x1 = min(max(x0, -1), w - 2) + 1;
+    y1 = min(max(y0, -1), h - 2) + 1;
+    x0 = min(max(x0, 0), w - 1);
+    y0 = min(max(y0, 0), h - 1);
+  }
+  Taps tp;
+  tp.idx[0] = y0 * w + x0;
+  tp.idx[1] = y0 * w + x1;
+  tp.idx[2] = y1 * w + x0;
+  tp.idx[3] = y1 * w + x1;
+  tp.w[0] = (1.0f - fu) * (1.0f - fv);
+  tp.w[1] = fu * (1.0f - fv);
+  tp.w[2] = (1.0f - fu) * fv;
+  tp.w[3] = fu * fv;
+  return tp;
+}
+
+// sum over the taps of weight * texel (u8 rgb from img), in tap order
+__device__ __forceinline__ V3 tap_sum(const uint8_t* img, const Taps& tp) {
+  V3 acc = v3(0.0f, 0.0f, 0.0f);
+  for (int t = 0; t < 4; ++t) {
+    const uint8_t* px = img + (size_t)tp.idx[t] * 3;
+    acc = v3(acc.x + tp.w[t] * (float)px[0], acc.y + tp.w[t] * (float)px[1],
+             acc.z + tp.w[t] * (float)px[2]);
+  }
+  return acc;
+}
+
+// One node's record: its code, its parent byte, triangle id and NP texel
+// picks.
+template <int NP>
+__device__ __forceinline__ void write_record(const Records& R, int slot, size_t pix,
+                                             size_t n_pix, int code, int pcode, int wid,
+                                             const int (&pick)[NP]) {
+  R.rec[slot * n_pix + pix] = code | (pcode << 8);
+  R.wid[slot * n_pix + pix] = wid;
+  for (int t = 0; t < NP; ++t) R.pick[((size_t)slot * NP + t) * n_pix + pix] = pick[t];
+}
+
+template <bool RECORD, bool TRIS, bool BILINEAR>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
            const uint8_t* __restrict__ tex, int tex_h, int tex_w,
@@ -379,6 +301,7 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
   if (col >= width || row >= height) return;
   const size_t n_pix = (size_t)width * height;
   const size_t pix = (size_t)row * width + col;
+  constexpr int NP = BILINEAR ? 4 : 1;  // texel picks per node
 
   const float* SPH = sc + BASIS_SIZE;
   const float* PL = SPH + SPHERE_STRIDE * ns;
@@ -470,22 +393,39 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
         cx2 = v3(c.x + f * (__ldg(L + 5) * s), c.y + f * (__ldg(L + 6) * s),
                  c.z + f * (__ldg(L + 7) * s));
         if (rec_on) {
-          write_record(R, slot, pix, n_pix, LIGHT_CODE + lwin, pcode, -1, -1);
+          int none[NP];
+          for (int t = 0; t < NP; ++t) none[t] = -1;
+          write_record(R, slot, pix, n_pix, LIGHT_CODE + lwin, pcode, -1, none);
           for (int i = 0; i < nl; ++i) R.ssr[((size_t)slot * nl + i) * n_pix + pix] = 0.0f;
         }
       } else if (!isfinite(bt)) {
         // miss: skybox texel, weight f (raytracing.cl:61-81)
-        int u, v;
-        map_to_cube(d, sky_w / 4, u, v);
-        int sy = min(max(sky_h - v, 0), sky_h - 1);
-        int sx = min(max(u, 0), sky_w - 1);
-        const uint8_t* px = sky + ((size_t)sy * sky_w + sx) * 3;
-        float w = f / 255.0f;
-        cx2 = v3(c.x + w * (float)px[0], c.y + w * (float)px[1],
-                 c.z + w * (float)px[2]);
+        int pick[NP];
+        if constexpr (BILINEAR) {
+          // the v-flipped continuous coordinates, clamped (trace.py:573-581)
+          float uf, vf;
+          map_to_cube_float(d, sky_w / 4, uf, vf);
+          const Taps tp = bilinear_taps<false>(clip_nan(uf, 0.0f, (float)(sky_w - 1)),
+                                               clip_nan((float)sky_h - vf, 0.0f,
+                                                        (float)(sky_h - 1)),
+                                               sky_w, sky_h);
+          const V3 acc = tap_sum(sky, tp);
+          float w = f / 255.0f;
+          cx2 = v3(c.x + w * acc.x, c.y + w * acc.y, c.z + w * acc.z);
+          for (int t = 0; t < NP; ++t) pick[t] = R.sky_base + tp.idx[t];
+        } else {
+          int u, v;
+          map_to_cube(d, sky_w / 4, u, v);
+          int sy = min(max(sky_h - v, 0), sky_h - 1);
+          int sx = min(max(u, 0), sky_w - 1);
+          const uint8_t* px = sky + ((size_t)sy * sky_w + sx) * 3;
+          float w = f / 255.0f;
+          cx2 = v3(c.x + w * (float)px[0], c.y + w * (float)px[1],
+                   c.z + w * (float)px[2]);
+          pick[0] = R.sky_base + sy * sky_w + sx;
+        }
         if (rec_on) {
-          write_record(R, slot, pix, n_pix, MISS_CODE, pcode, -1,
-                       R.sky_base + sy * sky_w + sx);
+          write_record(R, slot, pix, n_pix, MISS_CODE, pcode, -1, pick);
           for (int i = 0; i < nl; ++i) R.ssr[((size_t)slot * nl + i) * n_pix + pix] = 0.0f;
         }
       } else {
@@ -513,7 +453,8 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
         }
         const float ambient = __ldg(M + M_AMBIENT);
         const float tex_id = __ldg(M + M_TEXTURE_ID);
-        int pick = -1;
+        int pick[NP];
+        for (int t = 0; t < NP; ++t) pick[t] = -1;
         // a textured triangle is flat-shaded: texels are fetched for plane
         // hits only (pallas_trace.py:1832-1837, ROADMAP C6)
         if (is_plane && tex_id > -0.5f) {
@@ -531,14 +472,23 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
           float vi = dot(b1, hp) * tscale;
           if (!isfinite(ui)) ui = 0.0f;
           if (!isfinite(vi)) vi = 0.0f;
-          int tx = floor_mod(__float2int_rz(ui), tex_w);
-          int ty = floor_mod(__float2int_rz(vi), tex_h);
-          int tid = (int)tex_id;
-          pick = (tid * tex_h + ty) * tex_w + tx;
-          const uint8_t* px = tex + (size_t)pick * 3;
-          float w = (f * ambient) / 255.0f;
-          cx2 = v3(c.x + w * (float)px[0], c.y + w * (float)px[1],
-                   c.z + w * (float)px[2]);
+          if constexpr (BILINEAR) {
+            const Taps tp = bilinear_taps<true>(ui, vi, tex_w, tex_h);
+            const int base = (int)tex_id * tex_h * tex_w;
+            const V3 acc = tap_sum(tex + (size_t)base * 3, tp);
+            float w = (f * ambient) / 255.0f;
+            cx2 = v3(c.x + w * acc.x, c.y + w * acc.y, c.z + w * acc.z);
+            for (int t = 0; t < NP; ++t) pick[t] = base + tp.idx[t];
+          } else {
+            int tx = floor_mod(__float2int_rz(ui), tex_w);
+            int ty = floor_mod(__float2int_rz(vi), tex_h);
+            int tid = (int)tex_id;
+            pick[0] = (tid * tex_h + ty) * tex_w + tx;
+            const uint8_t* px = tex + (size_t)pick[0] * 3;
+            float w = (f * ambient) / 255.0f;
+            cx2 = v3(c.x + w * (float)px[0], c.y + w * (float)px[1],
+                     c.z + w * (float)px[2]);
+          }
         } else {
           float amb = f * ambient;
           cx2 = v3(c.x + amb * __ldg(M), c.y + amb * __ldg(M + 1),
@@ -601,7 +551,7 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
             if constexpr (TRIS) {
               if (!blocked) {
                 int crossed = 0;
-                blocked = tri_feeler(T, ph, q, tmax, crossed);
+                blocked = tri_feeler<false>(T, ph, q, tmax, crossed);
                 if (crossed) opac *= powf(TRI_THROUGH, (float)crossed);
               }
             }
@@ -702,7 +652,7 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
     for (int s = min(nodes, R.krec); s < R.krec; ++s) {
       R.rec[s * n_pix + pix] = -1;
       R.wid[s * n_pix + pix] = -1;
-      R.pick[s * n_pix + pix] = -1;
+      for (int t = 0; t < NP; ++t) R.pick[((size_t)s * NP + t) * n_pix + pix] = -1;
       for (int i = 0; i < nl; ++i) R.ssr[((size_t)s * nl + i) * n_pix + pix] = 0.0f;
     }
     // image-wide max of the true node count: a warp reduction over the
@@ -714,25 +664,15 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
   }
 }
 
-// The triangle tables as the kernel takes them; level_n (host memory) holds
-// the nodes of each level, root first.
-static cudaError_t make_tris(const float* geom, const float* attr, const float* node, int n,
-                             int levels, const int* level_n, int block, int fanout, Tris& T) {
-  T = Tris{};
-  if (n == 0) return cudaSuccess;
-  if (levels < 1 || levels > TRI_MAX_LEVELS || block < 1 || fanout < 2) return cudaErrorInvalidValue;
-  T.n = n;
-  T.levels = levels;
-  T.block = block;
-  T.fanout = fanout;
-  T.geom = (const float4*)geom;
-  T.attr = attr;
-  T.node = (const float4*)node;
-  for (int l = 0, off = 0; l < levels; off += level_n[l], ++l) {
-    T.off[l] = off;
-    T.cnt[l] = level_n[l];
-  }
-  return cudaSuccess;
+typedef void (*Megakernel)(const float*, int, int, int, const Tris, const uint8_t*, int, int,
+                           const uint8_t*, int, int, int, int, int, int, float, float, float,
+                           float*, const Records);
+
+// The instantiation for a scene with or without triangles, and a filter.
+template <bool RECORD>
+static Megakernel instantiation(bool tris, bool bilinear) {
+  if (tris) return bilinear ? megakernel<RECORD, true, true> : megakernel<RECORD, true, false>;
+  return bilinear ? megakernel<RECORD, false, true> : megakernel<RECORD, false, false>;
 }
 
 extern "C" int tpuray_megakernel(const float* scene, int ns, int npl, int nl,
@@ -743,7 +683,7 @@ extern "C" int tpuray_megakernel(const float* scene, int ns, int npl, int nl,
                                  const unsigned char* sky, int sky_h, int sky_w,
                                  int width, int height, int max_depth,
                                  int shadow_samples, float eps, float through,
-                                 float default_n, float* out, void* stream) {
+                                 float default_n, int bilinear, float* out, void* stream) {
   Tris T;
   cudaError_t err = make_tris(tri_geom, tri_attr, tri_node, n_tris, tri_levels, tri_level_n,
                               tri_block, tri_fanout, T);
@@ -751,7 +691,7 @@ extern "C" int tpuray_megakernel(const float* scene, int ns, int npl, int nl,
   dim3 block(BLOCK_X, BLOCK_Y);
   dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (height + BLOCK_Y - 1) / BLOCK_Y);
   const Records none = {0, 0, nullptr, nullptr, nullptr, nullptr, nullptr};
-  auto kernel = T.n ? megakernel<false, true> : megakernel<false, false>;
+  Megakernel kernel = instantiation<false>(T.n != 0, bilinear != 0);
   kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       scene, ns, npl, nl, T, tex, tex_h, tex_w, sky, sky_h, sky_w, width, height,
       max_depth, shadow_samples, eps, through, default_n, out, none);
@@ -759,14 +699,15 @@ extern "C" int tpuray_megakernel(const float* scene, int ns, int npl, int nl,
 }
 
 // Record mode: the image in `out` plus the node records; `n_tex` textures
-// precede the sky in the texel-pick index space.  Zeroes *max_nodes first.
+// precede the sky in the texel-pick index space; `pick` holds 4 planes per
+// slot when `bilinear`.  Zeroes *max_nodes first.
 extern "C" int tpuray_megakernel_record(
     const float* scene, int ns, int npl, int nl, const float* tri_geom,
     const float* tri_attr, const float* tri_node, int n_tris, int tri_levels,
     const int* tri_level_n, int tri_block, int tri_fanout, const unsigned char* tex,
     int n_tex, int tex_h, int tex_w, const unsigned char* sky, int sky_h,
     int sky_w, int width, int height, int max_depth, int shadow_samples,
-    float eps, float through, float default_n, int krec, float* out, int* rec,
+    float eps, float through, float default_n, int bilinear, int krec, float* out, int* rec,
     int* wid, float* ssr, int* pick, int* max_nodes, void* stream) {
   Tris T;
   cudaError_t err = make_tris(tri_geom, tri_attr, tri_node, n_tris, tri_levels, tri_level_n,
@@ -777,7 +718,7 @@ extern "C" int tpuray_megakernel_record(
   dim3 block(BLOCK_X, BLOCK_Y);
   dim3 grid((width + BLOCK_X - 1) / BLOCK_X, (height + BLOCK_Y - 1) / BLOCK_Y);
   const Records R = {krec, n_tex * tex_h * tex_w, rec, wid, ssr, pick, max_nodes};
-  auto kernel = T.n ? megakernel<true, true> : megakernel<true, false>;
+  Megakernel kernel = instantiation<true>(T.n != 0, bilinear != 0);
   kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       scene, ns, npl, nl, T, tex, tex_h, tex_w, sky, sky_h, sky_w, width, height,
       max_depth, shadow_samples, eps, through, default_n, out, R);

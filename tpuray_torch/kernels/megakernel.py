@@ -1,10 +1,10 @@
 """The Whitted megakernel: one CUDA kernel renders the whole image.
 
 Port of ``tpuray/kernels/pallas_trace.py``: the megakernel ``_make_kernel``'s
-``kernel`` (:659) with nearest filtering, in its base configuration, with
-triangles (K3 and K4 as one path) and in record mode, ``pack_uniforms``
-(:151), ``_pallas_forward`` (:2314), ``render_pallas`` (:2452) and
-``render_pallas_record`` (:2665).
+``kernel`` (:659) in its base configuration (K1), with bilinear filtering
+(K2, :1882-1943), with triangles (K3 and K4 as one path) and in record mode
+(K5), ``pack_uniforms`` (:151), ``_pallas_forward`` (:2314),
+``render_pallas`` (:2452) and ``render_pallas_record`` (:2665).
 
 Per pixel it runs the reference's whole traversal (raytracing.cl:14-195):
 primary-ray generation (raygen.cl:5-25), the depth-first reflect/refract
@@ -12,7 +12,11 @@ stack machine, Phong lighting with xorshift32 soft shadows, and the texel
 fetches of the skybox and the plane textures.  The TPU kernel could not
 gather in VMEM, so it wrote texel "events" that an XLA gather resolved
 after the kernel; here the texels are read where they are needed, so there
-are no event buffers, no overflow counters and nothing to retry.
+are no event buffers, no overflow counters and nothing to retry.  With
+``cfg.filter='bilinear'`` each fetch weights the 4 texels around the
+continuous coordinate (``primitives.bilinear_taps``; sky taps clamp, texture
+taps wrap): the colour is ``sum_t w_t * texel_t``, times ``f / 255`` for the
+sky and ``f * ambient / 255`` for a textured plane.
 
 Triangles (the JAX package's extension; the tables are ``triblocks.py``'s)
 follow the XLA tracer (``trace.py``): Möller–Trumbore, double-faced;
@@ -60,7 +64,9 @@ Records (``pallas_trace.py:2102-2148``; the layout is the port's own):
 * ``pick`` [Krec, n_pix] i32: the texel the node fetched (a textured plane
   or the sky), -1 for none.  Textures come first in the index space
   (``(tid * tex_h + y) * tex_w + x``), then the sky (``n_tex * tex_h *
-  tex_w + y * sky_w + x``), as in the JAX package's texel atlas.
+  tex_w + y * sky_w + x``), as in the JAX package's texel atlas.  With
+  bilinear filtering ``pick`` is [Krec, 4, n_pix]: the 4 taps of the fetch,
+  in ``bilinear_taps`` order (the JAX kernel's 4 events per fetch).
 * ``max_nodes`` [] i32: the image-wide maximum of the true node count, also
   where it exceeds Krec.
 """
@@ -237,6 +243,9 @@ def _trace_reference(packed: PackedScene, assets: SceneAssets,
     tris = packed.tris
     if tris is not None and tri_search is None:
         tri_search = BruteForce(tris)
+    bilinear = cfg.filter == "bilinear"
+    n_picks = 4 if bilinear else 1
+    sky_flat, tex_flat = sky.reshape(-1, 3), tex.reshape(-1, 3)
 
     # ---- raygen (raygen.cl:10-24, pallas_trace.py:700-719) ----
     B = packed.buf[:BASIS_SIZE]
@@ -267,7 +276,7 @@ def _trace_reference(packed: PackedScene, assets: SceneAssets,
         i32 = torch.int32
         rec = torch.full((krec, n_pix), -1, dtype=i32, device=dev)
         wid_out = torch.full((krec, n_pix), -1, dtype=i32, device=dev)
-        pick = torch.full((krec, n_pix), -1, dtype=i32, device=dev)
+        pick = torch.full((krec, n_picks, n_pix), -1, dtype=i32, device=dev)
         ssr_out = torch.zeros(krec, nl, n_pix, dtype=f32, device=dev)
         nodes = torch.zeros(n_pix, dtype=torch.int64, device=dev)
         pcode = torch.zeros(n_pix, dtype=torch.int64, device=dev)
@@ -364,8 +373,14 @@ def _trace_reference(packed: PackedScene, assets: SceneAssets,
         cx2 = torch.where(is_light[:, None], C + F[:, None] * lcol, C)
 
         # --- miss: skybox texel with weight f (raytracing.cl:61-81) ---
-        sy, sx = pr.sky_texel(Dd, sky_h, sky_w)
-        sky_rgb = sky[sy, sx].to(f32)
+        if bilinear:
+            xf, yf = pr.sky_coords(Dd, sky_h, sky_w)
+            sky_rgb, sky_idx = _fetch(sky_flat, pr.bilinear_taps(
+                xf, yf, sky_w, sky_h, wrap=False), 0, sky_w)
+        else:
+            sy, sx = pr.sky_texel(Dd, sky_h, sky_w)
+            sky_idx = (sy * sky_w + sx)[:, None]
+            sky_rgb = sky_flat[sky_idx[:, 0]].to(f32)
         cx2 = torch.where(is_miss[:, None],
                           cx2 + (F / 255.0)[:, None] * sky_rgb, cx2)
 
@@ -374,16 +389,22 @@ def _trace_reference(packed: PackedScene, assets: SceneAssets,
         #     a textured triangle is flat (pallas_trace.py:1832-1837) ---
         is_plane = (bwin >= ns) & (bwin < ns + npl)
         textured = is_solid & is_plane & (mat[:, M_TEXTURE_ID] > -0.5)
-        tex_idx = torch.full_like(DEP, -1)
+        tex_idx = torch.full((act.shape[0], n_picks), -1, dtype=torch.int64,
+                             device=dev)
         if npl:
             pidx = (bwin - ns).clamp(0, npl - 1)
-            tx, ty = pr.texture_texel_coords(
-                p_b0[pidx], p_b1[pidx], hpt, mat[:, M_TEXTURE_SCALE],
-                tex_h, tex_w)
             tid = torch.where(textured, mat[:, M_TEXTURE_ID].to(torch.int64),
-                              torch.zeros_like(tx)).clamp(0, n_tex - 1)
-            tex_rgb = tex[tid, ty, tx].to(f32)
-            tex_idx = (tid * tex_h + ty) * tex_w + tx
+                              torch.zeros_like(DEP)).clamp(0, n_tex - 1)
+            b0, b1, scale = p_b0[pidx], p_b1[pidx], mat[:, M_TEXTURE_SCALE]
+            if bilinear:
+                ui, vi = pr.texture_coords(b0, b1, hpt, scale)
+                tex_rgb, tex_idx = _fetch(tex_flat, pr.bilinear_taps(
+                    ui, vi, tex_w, tex_h, wrap=True), tid * tex_h, tex_w)
+            else:
+                tx, ty = pr.texture_texel_coords(b0, b1, hpt, scale, tex_h,
+                                                 tex_w)
+                tex_idx = ((tid * tex_h + ty) * tex_w + tx)[:, None]
+                tex_rgb = tex_flat[tex_idx[:, 0]].to(f32)
             cx2 = torch.where(textured[:, None],
                               cx2 + ((F * ambient) / 255.0)[:, None] * tex_rgb,
                               cx2)
@@ -409,14 +430,14 @@ def _trace_reference(packed: PackedScene, assets: SceneAssets,
             can = work & fits
             code = torch.where(is_light, LIGHT_CODE + lwin,
                                torch.where(is_miss, MISS_CODE, bwin))
-            pk = torch.where(is_miss, sky_base + sy * sky_w + sx,
-                             torch.where(textured, tex_idx,
+            pk = torch.where(is_miss[:, None], sky_base + sky_idx,
+                             torch.where(textured[:, None], tex_idx,
                                          torch.full_like(tex_idx, -1)))
             lanes, s_can = act[can], slot[can]
             rec[s_can, lanes] = (code | (PC << 8))[can].to(i32)
             wid_out[s_can, lanes] = torch.where(is_solid, wid,
                                                 -1)[can].to(i32)
-            pick[s_can, lanes] = pk[can].to(i32)
+            pick[s_can, :, lanes] = pk[can].to(i32)
             if ssrs is not None:
                 shaded = can & is_solid
                 ssr_out[slot[shaded], :, act[shaded]] = torch.stack(
@@ -490,8 +511,23 @@ def _trace_reference(packed: PackedScene, assets: SceneAssets,
     if not record:
         return img, None
     max_nodes = (nodes.max() if n_pix else nodes.new_zeros(())).to(i32)
+    if not bilinear:
+        pick = pick.reshape(krec, n_pix)
     return img, {"rec": rec, "wid": wid_out, "ssr": ssr_out, "pick": pick,
                  "max_nodes": max_nodes}
+
+
+def _fetch(flat, taps, row0, width):
+    """Bilinear fetch from the u8 rgb rows ``flat``: (sum of weight * texel
+    in tap order [n, 3] f32, the taps' rows ``(row0 + y) * width + x`` [n,
+    4])."""
+    acc = None
+    idx = []
+    for x, y, w in taps:
+        idx.append((row0 + y) * width + x)
+        term = w[:, None] * flat[idx[-1]].to(torch.float32)
+        acc = term if acc is None else acc + term
+    return acc, torch.stack(idx, 1)
 
 
 def _shade(O, ph, nrm, mat, F, rng, sph, s_transp, pln, lgt, n_samples,
@@ -649,7 +685,8 @@ def render_megakernel(packed: PackedScene, assets: SceneAssets,
     Tensors on the CPU go to :func:`render_megakernel_reference`.  Tensors
     on a CUDA device launch the CUDA kernel on the current stream; a build
     or launch error raises and nothing falls back.  ``launches`` counts the
-    kernel launches."""
+    kernel launches, ``bilinear_launches`` those with
+    ``cfg.filter='bilinear'`` (K2)."""
     _check_inputs(packed, assets, cfg)
     dev = packed.buf.device
     if dev.type == "cpu":
@@ -674,15 +711,36 @@ def render_megakernel(packed: PackedScene, assets: SceneAssets,
             cfg.width, cfg.height, cfg.max_depth, cfg.shadow_samples,
             float(np.float32(cfg.epsilon)),
             float(np.float32(cfg.transparent_through)),
-            float(np.float32(cfg.default_n)),
+            float(np.float32(cfg.default_n)), int(cfg.filter == "bilinear"),
             out.data_ptr(), stream)
     if err:
         raise _kernel_error(lib, err, "megakernel")
     render_megakernel.launches += 1
+    render_megakernel.bilinear_launches += cfg.filter == "bilinear"
     return out
 
 
 render_megakernel.launches = 0
+render_megakernel.bilinear_launches = 0
+
+
+def render_megakernel_checked(scene: Scene, assets: SceneAssets,
+                              basis: PerspectiveBasis, cfg: RenderConfig,
+                              row0: int = 0):
+    """``render_pallas_checked`` (pallas_trace.py:2711): (image, dropped,
+    needed).  The JAX kernel reported the texel events it could not store
+    and the event slots that would have held them; this kernel fetches
+    texels itself, so both are 0."""
+    return render_megakernel(pack_scene(scene, basis, row0), assets, cfg), 0, 0
+
+
+def render_megakernel_stats(scene: Scene, assets: SceneAssets,
+                            basis: PerspectiveBasis,
+                            cfg: RenderConfig) -> dict:
+    """``render_pallas_stats`` (pallas_trace.py:2734): the JAX kernel's
+    event-buffer use.  This kernel has no event buffer: no slot is used
+    and nothing drops."""
+    return {"dropped_events": 0, "max_slots_used": 0}
 
 
 def render_megakernel_record(packed: PackedScene, assets: SceneAssets,
@@ -692,7 +750,8 @@ def render_megakernel_record(packed: PackedScene, assets: SceneAssets,
 
     Tensors on the CPU go to :func:`render_megakernel_record_reference`.
     Tensors on a CUDA device launch the record instantiation of the CUDA
-    kernel on the current stream (or raise); ``launches`` counts them.
+    kernel on the current stream (or raise); ``launches`` counts them,
+    ``bilinear_launches`` those with ``cfg.filter='bilinear'``.
     ``max_nodes`` stays on the device: reading it synchronises."""
     _check_inputs(packed, assets, cfg)
     krec = _check_record(packed, cfg)
@@ -712,7 +771,9 @@ def render_megakernel_record(packed: PackedScene, assets: SceneAssets,
     wid = torch.empty((krec, n_pix), dtype=torch.int32, device=dev)
     ssr = torch.empty((krec, lay.n_lights, n_pix), dtype=torch.float32,
                       device=dev)
-    pick = torch.empty((krec, n_pix), dtype=torch.int32, device=dev)
+    bilinear = cfg.filter == "bilinear"
+    pick = torch.empty((krec, 4, n_pix) if bilinear else (krec, n_pix),
+                       dtype=torch.int32, device=dev)
     max_nodes = torch.empty((), dtype=torch.int32, device=dev)
     records = {"rec": rec, "wid": wid, "ssr": ssr, "pick": pick,
                "max_nodes": max_nodes}
@@ -729,13 +790,15 @@ def render_megakernel_record(packed: PackedScene, assets: SceneAssets,
             cfg.width, cfg.height, cfg.max_depth, cfg.shadow_samples,
             float(np.float32(cfg.epsilon)),
             float(np.float32(cfg.transparent_through)),
-            float(np.float32(cfg.default_n)), krec,
+            float(np.float32(cfg.default_n)), int(bilinear), krec,
             out.data_ptr(), rec.data_ptr(), wid.data_ptr(), ssr.data_ptr(),
             pick.data_ptr(), max_nodes.data_ptr(), stream)
     if err:
         raise _kernel_error(lib, err, "record megakernel")
     render_megakernel_record.launches += 1
+    render_megakernel_record.bilinear_launches += bilinear
     return out, records
 
 
 render_megakernel_record.launches = 0
+render_megakernel_record.bilinear_launches = 0

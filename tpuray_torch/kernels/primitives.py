@@ -73,10 +73,11 @@ def xorshift32(state):
     return x, fx / 2147483648.0 * 2.0
 
 
-def map_to_cube(d, face: int):
-    """Direction -> integer texel (u, v) in the 4x3 horizontal-cross cubemap
-    (primitives.cl:14-109).  The six blocks are not exclusive and are
-    applied in source order, so a later block wins a tie."""
+def _cube_face_coords(d, face: int):
+    """The cubemap mapping's core (primitives.cl:14-109): per-lane in-face
+    fractions (fu, fv) in [0, 1] and the face's integer texel shifts (su,
+    sv).  The six blocks are not exclusive and are applied in source order,
+    so a later block wins a tie."""
     x, y, z = d[..., 0], d[..., 1], d[..., 2]
     ax, ay, az = x.abs(), y.abs(), z.abs()
     m = torch.ones_like(x)
@@ -100,7 +101,44 @@ def map_to_cube(d, face: int):
     safe = torch.where(m != 0, m, torch.ones_like(m))
     fu = 0.5 * (uc / safe + 1.0)
     fv = 0.5 * (vc / safe + 1.0)
+    return fu, fv, su, sv
+
+
+def map_to_cube(d, face: int):
+    """Direction -> integer texel (u, v) in the 4x3 horizontal-cross cubemap
+    (primitives.cl:14-109)."""
+    fu, fv, su, sv = _cube_face_coords(d, face)
     return su + trunc_i32(fu * float(face)), sv + trunc_i32(fv * float(face))
+
+
+def map_to_cube_float(d, face: int):
+    """Continuous cubemap coordinates (uf, vf), the bilinear filter's
+    counterpart of :func:`map_to_cube`; differentiable in ``d`` within a
+    face."""
+    fu, fv, su, sv = _cube_face_coords(d, face)
+    return su.to(fu.dtype) + fu * float(face), sv.to(fv.dtype) + fv * float(face)
+
+
+def bilinear_taps(u, v, w: int, h: int, wrap: bool):
+    """The 4 bilinear taps of continuous texel coordinates (u, v), texel
+    values sitting at integer coordinates: [(x, y, weight)] * 4 in the
+    order (0, 0), (1, 0), (0, 1), (1, 1).  The integer coordinates wrap
+    with a floor-mod (tiled plane textures) or clamp (the skybox's edges).
+    The weights are differentiable in (u, v): that is the spatial gradient
+    of a bilinear texture lookup (no reference analog)."""
+    u0f, v0f = torch.floor(u), torch.floor(v)
+    fu, fv = u - u0f, v - v0f
+    u0, v0 = trunc_i32(u0f), trunc_i32(v0f)
+    taps = []
+    for du, dv, wgt in ((0, 0, (1 - fu) * (1 - fv)), (1, 0, fu * (1 - fv)),
+                        (0, 1, (1 - fu) * fv), (1, 1, fu * fv)):
+        x, y = u0 + du, v0 + dv
+        if wrap:
+            x, y = torch.remainder(x, w), torch.remainder(y, h)
+        else:
+            x, y = x.clamp(0, w - 1), y.clamp(0, h - 1)
+        taps.append((x, y, wgt))
+    return taps
 
 
 def sky_texel(d, sky_h: int, sky_w: int):
@@ -108,6 +146,22 @@ def sky_texel(d, sky_h: int, sky_w: int):
     v flip and clamps of raytracing.cl:61-78 (pallas_trace.py:1826-1829)."""
     u, v = map_to_cube(d, sky_w // 4)
     return (sky_h - v).clamp(0, sky_h - 1), u.clamp(0, sky_w - 1)
+
+
+def clip(x, lo: float, hi: float):
+    """``jnp.clip``: max then min, whose gradient splits at a tie and lets
+    NaN through."""
+    return torch.minimum(torch.maximum(x, torch.full_like(x, lo)),
+                         torch.full_like(x, hi))
+
+
+def sky_coords(d, sky_h: int, sky_w: int):
+    """Continuous skybox coordinates (x, y) for the bilinear fetch: the
+    v-flipped cubemap coordinates clamped into the image
+    (trace.py:573-575)."""
+    uf, vf = map_to_cube_float(d, sky_w // 4)
+    return clip(uf, 0.0, float(sky_w - 1)), clip(sky_h - vf, 0.0,
+                                                 float(sky_h - 1))
 
 
 def plane_texture_basis(normal):
@@ -127,14 +181,20 @@ def plane_texture_basis(normal):
     return b0, b1
 
 
+def texture_coords(b0, b1, point, scale):
+    """Continuous plane-texture coordinates (u, v) of a hit point
+    (primitives.cl:237-248), non-finite ones set to 0."""
+    ui = dot3(b0, point) * scale
+    vi = dot3(b1, point) * scale
+    return (torch.where(torch.isfinite(ui), ui, torch.zeros_like(ui)),
+            torch.where(torch.isfinite(vi), vi, torch.zeros_like(vi)))
+
+
 def texture_texel_coords(b0, b1, point, scale, tex_h: int, tex_w: int):
     """Plane-texture texel (col, row) of a hit point (primitives.cl:237-256):
     non-finite coordinates become 0, the int cast truncates toward zero,
     and the wrap is a floor-mod, so negative coordinates tile correctly."""
-    ui = dot3(b0, point) * scale
-    vi = dot3(b1, point) * scale
-    ui = torch.where(torch.isfinite(ui), ui, torch.zeros_like(ui))
-    vi = torch.where(torch.isfinite(vi), vi, torch.zeros_like(vi))
+    ui, vi = texture_coords(b0, b1, point, scale)
     return (torch.remainder(trunc_i32(ui), tex_w),
             torch.remainder(trunc_i32(vi), tex_h))
 
@@ -196,28 +256,38 @@ def reflect(incident, normal):
     return incident + (2.0 * cos_i)[..., None] * normal
 
 
+def sqrt_pos(x):
+    """sqrt(max(x, 0)) whose gradient is zero, not NaN, where x <= 0 (TIR
+    rays, degenerate quadratics on dead lanes): the double ``where`` keeps
+    sqrt's infinite slope at 0 out of the backward (replay.py:52-61)."""
+    pos = x > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, torch.ones_like(x))),
+                       torch.zeros_like(x))
+
+
 def refract(n1, n2, incident, normal):
-    """primitives.cl:132-144 with the NaN TIR signal replaced by a mask.
-    Returns (direction, tir)."""
+    """primitives.cl:132-144 with the NaN TIR signal replaced by a mask and
+    a gradient-guarded sqrt.  Returns (direction, tir)."""
     n = n1 / n2
     cos_i = -dot3(normal, incident)
     sin_t2 = n * n * (1.0 - cos_i * cos_i)
     tir = sin_t2 > 1.0
-    cos_t = torch.sqrt((1.0 - sin_t2).clamp(min=0.0))
+    cos_t = sqrt_pos(1.0 - sin_t2)
     out = n[..., None] * incident + (n * cos_i - cos_t)[..., None] * normal
     return out, tir
 
 
 def schlick(n1, n2, incident, normal):
     """Schlick Fresnel (primitives.cl:146-160), with the n1 > n2
-    transmission-angle substitution and the TIR -> 1 early out."""
+    transmission-angle substitution, the TIR -> 1 early out and a
+    gradient-guarded sqrt."""
     r0 = (n1 - n2) / (n1 + n2)
     r0 = r0 * r0
     cos_x = -dot3(normal, incident)
     n = n1 / n2
     sin_t2 = n * n * (1.0 - cos_x * cos_x)
     tir = sin_t2 > 1.0
-    cos_trans = torch.sqrt((1.0 - sin_t2).clamp(min=0.0))
+    cos_trans = sqrt_pos(1.0 - sin_t2)
     use_trans = n1 > n2
     cos_x = torch.where(use_trans, cos_trans, cos_x)
     x = 1.0 - cos_x

@@ -33,8 +33,15 @@ Differences from the JAX replay:
 * A triangle node (``TRI_CODE``) reads its triangle by the recorded id
   (``records["wid"]``) with one ``index_select`` per slot: a one-hot
   product over up to 524,288 triangles would not fit.
-
-Bilinear records (K2) are not ported yet (ROADMAP.md queue B).
+* With ``cfg.filter='bilinear'`` the colours of a fetch come from its 4
+  recorded picks, and the tap weights are recomputed differentiably from
+  the ray (sky) or the hit point (texture), as the JAX replay does
+  (replay.py:343-367): this is where the spatial texture and sky gradient
+  flows.  The fractions are taken past the recorded first tap, not past a
+  recomputed floor: where the recomputed coordinate and the kernel's lie
+  on two sides of a texel edge (a rounding apart), a recomputed floor
+  would weight the wrong texels (0.2 off on one pixel of a 256x64 image on
+  the card).
 """
 from __future__ import annotations
 
@@ -53,15 +60,6 @@ from .triblocks import TRI_CODE, check_triangle_count
 F32 = torch.float32
 
 
-def _sqrt_pos(x):
-    """sqrt(max(x, 0)) whose gradient is zero, not NaN, where x <= 0 (TIR
-    rays, degenerate quadratics on dead slots): the double ``where`` keeps
-    sqrt's infinite slope at 0 out of the backward (replay.py:52-61)."""
-    pos = x > 0
-    return torch.where(pos, torch.sqrt(torch.where(pos, x, torch.ones_like(x))),
-                       torch.zeros_like(x))
-
-
 def _sphere_t(o, d, center, radius, active):
     """Recorded-winner sphere t, far-root rule (primitives.cl:170-195).
     Inactive lanes get a unit ray, so the quadratic never divides by zero;
@@ -74,38 +72,11 @@ def _sphere_t(o, d, center, radius, active):
     a = torch.where(a > 0, a, torch.ones_like(a))
     b = 2.0 * pr.dot3(v, d)
     c = pr.dot3(v, v) - radius * radius
-    sq = _sqrt_pos(b * b - 4.0 * a * c)
+    sq = pr.sqrt_pos(b * b - 4.0 * a * c)
     two_a = 2.0 * a
     t_near = (-b - sq) / two_a
     t_far = (-b + sq) / two_a
     return torch.where(t_near < 0, t_far, t_near)
-
-
-def _refract(n1, n2, incident, normal):
-    """primitives.cl:132-144 with a gradient-guarded TIR sqrt."""
-    n = n1 / n2
-    cos_i = -pr.dot3(normal, incident)
-    sin_t2 = n * n * (1.0 - cos_i * cos_i)
-    tir = sin_t2 > 1.0
-    cos_t = _sqrt_pos(1.0 - sin_t2)
-    out = n[:, None] * incident + (n * cos_i - cos_t)[:, None] * normal
-    return out, tir
-
-
-def _schlick(n1, n2, incident, normal):
-    """primitives.cl:146-160 with a gradient-guarded transmission sqrt."""
-    r0 = (n1 - n2) / (n1 + n2)
-    r0 = r0 * r0
-    cos_x = -pr.dot3(normal, incident)
-    n = n1 / n2
-    sin_t2 = n * n * (1.0 - cos_x * cos_x)
-    tir = sin_t2 > 1.0
-    cos_trans = _sqrt_pos(1.0 - sin_t2)
-    use_trans = n1 > n2
-    cos_x = torch.where(use_trans, cos_trans, cos_x)
-    x = 1.0 - cos_x
-    fr = r0 + (1.0 - r0) * x * x * x * x * x
-    return torch.where(use_trans & tir, torch.ones_like(fr), fr)
 
 
 # columns of the per-solid table (spheres first, then planes, as the codes)
@@ -172,6 +143,22 @@ def _tri_hit(o, d, v0, v1, v2):
     return t, tn
 
 
+def _tap_fraction(u, x0, size: int, wrap: bool):
+    """u's fraction past the texel column x0, the recorded first tap of the
+    fetch (``floor(u)`` in the kernel, ``mod size`` where ``wrap``):
+    ``u - floor(u)``, except where the recomputed u lies across a texel
+    edge from the kernel's, a rounding apart; there it is taken past the
+    kernel's column (just below 0 or just above 1), so that the weights
+    stay those of the recorded taps.  A recorded column further away
+    (another path, another cube face) leaves ``u - floor(u)``."""
+    k = torch.floor(u)
+    shift = x0 - pr.trunc_i32(k)
+    if wrap:
+        shift = torch.remainder(shift + 1, size) - 1
+    shift = torch.where(shift.abs() <= 1, shift, torch.zeros_like(shift))
+    return u - (k + shift.to(u.dtype))
+
+
 def replay_render(scene: Scene, assets: SceneAssets,
                   basis: PerspectiveBasis, records: dict,
                   cfg: RenderConfig, row0: int = 0) -> torch.Tensor:
@@ -207,6 +194,10 @@ def replay_render(scene: Scene, assets: SceneAssets,
     inv_pi = pr.INV_PI
 
     rec, ssr, pick = records["rec"], records["ssr"], records["pick"]
+    bilinear = cfg.filter == "bilinear"
+    sky_h, sky_w = assets.skybox.shape[0], assets.skybox.shape[1]
+    tex_h, tex_w = assets.textures.shape[1], assets.textures.shape[2]
+    sky_base = assets.textures.shape[0] * tex_h * tex_w
     n_slots = min(int(records["max_nodes"]), rec.shape[0])
     o0, d0 = generate_rays(basis, width, height, row0)
     table = _solid_table(scene)
@@ -285,11 +276,33 @@ def replay_render(scene: Scene, assets: SceneAssets,
         # ---- texels: the sky on a miss, the texture on a textured plane
         # (raytracing.cl:61-84); the colour is the recorded pick's ----
         textured = is_solid & is_plane & (row[:, _COLS["texture_id"]] > -0.5)
-        fetched = (is_miss | textured) & (pick[s] >= 0)
         w_tex = torch.where(is_miss, f, f * ambient)
-        w_tex = torch.where(fetched, w_tex, zero) / 255.0
-        texel = texels[pick[s].clamp(min=0).to(torch.int64)].to(F32)
-        img = img + w_tex[:, None] * texel
+        if bilinear:
+            # the taps' weights from the fractions past the recorded first
+            # tap (x0, y0)
+            p0 = pick[s, 0].to(torch.int64)
+            sky0 = (p0 - sky_base).clamp(min=0)
+            tex0 = p0.clamp(min=0) % (tex_h * tex_w)
+            xf, yf = pr.sky_coords(d, sky_h, sky_w)
+            b0, b1 = pr.plane_texture_basis(p_nrm)
+            ui, vi = pr.texture_coords(b0, b1, hit,
+                                       row[:, _COLS["texture_scale"]])
+            fu = torch.where(is_miss,
+                             _tap_fraction(xf, sky0 % sky_w, sky_w, False),
+                             _tap_fraction(ui, tex0 % tex_w, tex_w, True))
+            fv = torch.where(is_miss,
+                             _tap_fraction(yf, sky0 // sky_w, sky_h, False),
+                             _tap_fraction(vi, tex0 // tex_w, tex_h, True))
+            weights = [(1 - fu) * (1 - fv), fu * (1 - fv), (1 - fu) * fv,
+                       fu * fv]
+        else:
+            weights = [torch.ones_like(f)]
+        for t, w_t in enumerate(weights):
+            p_t = pick[s, t] if bilinear else pick[s]
+            fetched = (is_miss | textured) & (p_t >= 0)
+            w = torch.where(fetched, w_tex * w_t, zero) / 255.0
+            texel = texels[p_t.clamp(min=0).to(torch.int64)].to(F32)
+            img = img + w[:, None] * texel
 
         # ---- untextured ambient (raytracing.cl:83-84) ----
         img = img + torch.where(is_solid & ~textured, f * ambient,
@@ -306,7 +319,7 @@ def replay_render(scene: Scene, assets: SceneAssets,
             # a light exactly on the offset hit point must not NaN the
             # backward (sqrt'(0))
             dd2 = pr.dot3(to_light, to_light)
-            dd = torch.where(dd2 > 0, _sqrt_pos(dd2), torch.ones_like(dd2))
+            dd = torch.where(dd2 > 0, pr.sqrt_pos(dd2), torch.ones_like(dd2))
             fall = inv_pi * scene.light_intensity[i] / (dd * dd) * ssr[s, i]
             half = pr.normalize3(v_dir + sd)
             ndh = pr.dot3(n_vec, half).clamp(min=0.0)
@@ -320,7 +333,7 @@ def replay_render(scene: Scene, assets: SceneAssets,
         n2 = torch.where(n1 == default_n, row[:, _COLS["n"]],
                          torch.full_like(n1, default_n))
         n2 = torch.where(n2 != 0, n2, torch.ones_like(n2))  # dead lanes
-        fr = _schlick(n1, n2, d, n_vec)
+        fr = pr.schlick(n1, n2, d, n_vec)
         refl = row[:, _COLS["reflectivity"]]
         ra = torch.where(row[:, _COLS["dielectric"]] > 0.5,
                          refl + (1.0 - refl) * fr, refl)
@@ -328,7 +341,7 @@ def replay_render(scene: Scene, assets: SceneAssets,
         entering = n1 < n2
         co = torch.where(entering[:, None], ph - 2.0 * eps * n_vec, ph)
         rn = torch.where(entering[:, None], n_vec, -n_vec)
-        refr_d, tir = _refract(n1, n2, d, rn)
+        refr_d, tir = pr.refract(n1, n2, d, rn)
         can_refr = (is_solid & (row[:, _COLS["transparent"]] > 0.5)
                     & (ra < 1.0) & ~tir)
         f_refr = torch.where(can_refr, f * (1.0 - ra), zero)

@@ -2,27 +2,91 @@
 
 Port of :mod:`tpuray.render`: the reference's host pipeline (raypng.c:11-100),
 camera perspective -> raygen -> raytracer -> image.  Everything runs on the
-scene's device: CUDA tensors go through the CUDA megakernel, CPU tensors
-through its plain PyTorch version.
+scene's device.  Two engines (``cfg.engine``): the megakernel (CUDA tensors
+launch the CUDA kernel, CPU tensors run its plain PyTorch version) and the
+whole-image tracer (``kernels/trace.py``), which renders in chunks of
+``cfg.chunk_size`` pixels and is differentiable by autograd.
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
 
-from .camera import Camera, PerspectiveBasis, perspective_basis
+from .camera import Camera, PerspectiveBasis, generate_rays, perspective_basis
 from .config import RenderConfig
 from .kernels.megakernel import pack_scene, render_megakernel
+from .kernels.trace import trace_rays
+from .kernels.triblocks import TRI_MAX_TRIANGLES
 from .scene import Scene
 from .textures import SceneAssets
+
+
+def megakernel_supported(scene: Scene, cfg: RenderConfig) -> bool:
+    """Whether the megakernel takes the scene: it covers every feature
+    (both filters, triangles, records) up to ``TRI_MAX_TRIANGLES``
+    triangles (``pallas_supported``, pallas_trace.py:2749)."""
+    return scene.num_triangles <= TRI_MAX_TRIANGLES
+
+
+def _use_megakernel(scene: Scene, cfg: RenderConfig) -> bool:
+    if cfg.engine != "auto":
+        return cfg.engine == "megakernel"
+    if megakernel_supported(scene, cfg):
+        return True
+    # never downgrade silently: the tracer is far slower
+    warnings.warn(
+        f"engine='auto' fell back to the whole-image tracer: the scene's "
+        f"{scene.num_triangles:,} triangles exceed the megakernel's cap "
+        f"({TRI_MAX_TRIANGLES:,}); expect a much slower render",
+        RuntimeWarning, stacklevel=3)
+    return False
+
+
+def render_from_basis_tracer(scene: Scene, assets: SceneAssets,
+                             basis: PerspectiveBasis, cfg: RenderConfig,
+                             row0: int = 0) -> torch.Tensor:
+    """The whole-image tracer's render of ``cfg.height`` rows from image row
+    ``row0``: primary rays -> :func:`kernels.trace.trace_rays`, in chunks of
+    ``cfg.chunk_size`` pixels (0: one chunk).  float32 linear rgb [H, W, 3]
+    on the scene's device, differentiable in the scene and basis tensors."""
+    width, height = cfg.width, cfg.height
+    n_pix = width * height
+    origins, dirs = generate_rays(basis, width, height, row0)
+    pixel_ids = torch.arange(n_pix, device=origins.device) + row0 * width
+    chunk = min(cfg.chunk_size or n_pix, n_pix) or 1
+    rgb = [trace_rays(scene, assets, origins[a:a + chunk], dirs[a:a + chunk],
+                      pixel_ids[a:a + chunk], cfg)
+           for a in range(0, n_pix, chunk)]
+    return torch.cat(rgb).reshape(height, width, 3)
 
 
 def render_from_basis(scene: Scene, assets: SceneAssets,
                       basis: PerspectiveBasis, cfg: RenderConfig,
                       row0: int = 0) -> torch.Tensor:
-    """Render ``cfg.height`` rows starting at image row ``row0``: float32
-    linear rgb [H, W, 3] on the scene's device."""
-    return render_megakernel(pack_scene(scene, basis, row0), assets, cfg)
+    """Render ``cfg.height`` rows starting at image row ``row0`` with the
+    engine ``cfg.engine`` picks: float32 linear rgb [H, W, 3] on the scene's
+    device.  ``'auto'`` takes the megakernel, and the tracer (with a
+    ``RuntimeWarning``) above the megakernel's triangle cap."""
+    if _use_megakernel(scene, cfg):
+        return render_megakernel(pack_scene(scene, basis, row0), assets, cfg)
+    return render_from_basis_tracer(scene, assets, basis, cfg, row0)
+
+
+def render_from_basis_checked(scene: Scene, assets: SceneAssets,
+                              basis: PerspectiveBasis, cfg: RenderConfig,
+                              max_retries: int = 2):
+    """:func:`render_from_basis` with the JAX package's drop report: (img,
+    {dropped, retries, event_slots, engine}).  The JAX megakernel deferred
+    texels to a bounded event buffer and re-rendered with more slots when
+    it dropped some; the port's kernel fetches texels itself, so nothing
+    drops, ``dropped``, ``retries`` and ``event_slots`` are 0, and
+    ``max_retries`` is never used."""
+    engine = "megakernel" if _use_megakernel(scene, cfg) else "tracer"
+    cfg = cfg.replace(engine=engine)
+    return (render_from_basis(scene, assets, basis, cfg),
+            {"dropped": 0, "retries": 0, "event_slots": 0, "engine": engine})
 
 
 def render(scene: Scene, assets: SceneAssets, camera: Camera,

@@ -51,8 +51,10 @@ def _check_skybox(sky: np.ndarray, name: str) -> None:
 def assets_from_arrays(textures: np.ndarray, skybox: np.ndarray,
                        device) -> SceneAssets:
     """u8 numpy arrays ([N, H, W, 3] and [Hs, Ws, 3]) -> ``SceneAssets``."""
-    tex = np.array(textures, np.uint8)
-    sky = np.array(skybox, np.uint8)
+    # order 'C': a copy in numpy's default order 'K' keeps a broadcast
+    # array's strides, and the kernels take contiguous assets only
+    tex = np.array(textures, np.uint8, order="C")
+    sky = np.array(skybox, np.uint8, order="C")
     if tex.ndim != 4 or tex.shape[0] < 1 or tex.shape[3] != 3:
         raise ValueError(f"textures must be u8 [N>=1, H, W, 3], got "
                          f"{tex.shape}")

@@ -11,9 +11,10 @@ can alternate: it builds that tree's kernels, then times each case with
 ``megakernel``, 5 warm-ups, median of 30, host overhead excluded.  The
 cases are K1 and K5 (record mode) on ``canonical_scene_spec()`` at 512x384
 depth 3 without shadow samples, at 128x96 depth 3 without, and at 800x600
-depth 15 with 2; and, in a tree that has ``meshes.py``, the triangle path
-and its record mode on ``mesh_benchmark_scene(4)`` (7,424 triangles) at
-512x384 depth 3 with 2.  Assets are ``random_asset_arrays(0, 512, 512)``.
+depth 15 with 2; in a tree that has ``meshes.py``, the triangle path and
+its record mode on ``mesh_benchmark_scene(4)`` (7,424 triangles) at
+512x384 depth 3 with 2; and, in a tree that takes ``filter='bilinear'``,
+K2 at 800x600 depth 15 with 2.  Assets are ``random_asset_arrays(0, 512, 512)``.
 
 It prints the card's name and power limit, then per tree the registers and
 stack frame that ptxas reports for each instantiation (when the tree's
@@ -31,15 +32,16 @@ import sys
 CAMERA = ((0.8, 2.5, -8.0), (0.2, 0.0, 1.0), 90.0, 1.0)
 WARMUP = 5
 ITERS = 30
-CASES = [  # name, width, height, depth, shadow samples, record, mesh
-    ("K1 512x384 d3 ss0", 512, 384, 3, 0, False, False),
-    ("K1 128x96 d3 ss0", 128, 96, 3, 0, False, False),
-    ("K1 800x600 d15 ss2", 800, 600, 15, 2, False, False),
-    ("K5 512x384 d3 ss0", 512, 384, 3, 0, True, False),
-    ("K5 128x96 d3 ss0", 128, 96, 3, 0, True, False),
-    ("K5 800x600 d15 ss2", 800, 600, 15, 2, True, False),
-    ("K3 512x384 d3 ss2 7424 tris", 512, 384, 3, 2, False, True),
-    ("K5 512x384 d3 ss2 7424 tris", 512, 384, 3, 2, True, True),
+CASES = [  # name, width, height, depth, shadow samples, record, mesh, filter
+    ("K1 512x384 d3 ss0", 512, 384, 3, 0, False, False, "nearest"),
+    ("K1 128x96 d3 ss0", 128, 96, 3, 0, False, False, "nearest"),
+    ("K1 800x600 d15 ss2", 800, 600, 15, 2, False, False, "nearest"),
+    ("K5 512x384 d3 ss0", 512, 384, 3, 0, True, False, "nearest"),
+    ("K5 128x96 d3 ss0", 128, 96, 3, 0, True, False, "nearest"),
+    ("K5 800x600 d15 ss2", 800, 600, 15, 2, True, False, "nearest"),
+    ("K3 512x384 d3 ss2 7424 tris", 512, 384, 3, 2, False, True, "nearest"),
+    ("K5 512x384 d3 ss2 7424 tris", 512, 384, 3, 2, True, True, "nearest"),
+    ("K2 800x600 d15 ss2", 800, 600, 15, 2, False, False, "bilinear"),
 ]
 
 
@@ -68,9 +70,15 @@ def worker(tree: str) -> None:
     assets = tt.assets_from_arrays(*tt.random_asset_arrays(0, 512, 512), dev)
     camera = tt.Camera(*CAMERA)
     out = {}
-    for name, width, height, depth, samples, record, mesh in CASES:
+    for name, width, height, depth, samples, record, mesh, filt in CASES:
         if mesh and not has_meshes:
             continue
+        try:
+            cfg = tt.RenderConfig(width=width, height=height,
+                                  max_depth=depth, shadow_samples=samples,
+                                  filter=filt)
+        except (NotImplementedError, ValueError):
+            continue          # a tree without bilinear filtering
         if mesh:
             from tpuray_torch.meshes import mesh_benchmark_scene
             spec = mesh_benchmark_scene(4)
@@ -78,8 +86,6 @@ def worker(tree: str) -> None:
             spec = tt.canonical_scene_spec()
         packed = pack_scene(tt.build_scene(spec, dev), tt.perspective_basis(
             camera, width, height, device=dev))
-        cfg = tt.RenderConfig(width=width, height=height, max_depth=depth,
-                              shadow_samples=samples)
         render = render_megakernel_record if record else render_megakernel
         for _ in range(WARMUP):
             render(packed, assets, cfg)
