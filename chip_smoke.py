@@ -36,7 +36,8 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     steps), which must go through K5 and lower the loss;
 13. times and bounds of the mesh kernels: 512x384 d3 with 7,424 and with
     163,840 triangles, 3840x2160 d6 with 10,240, and K5 at 512x384 d3 with
-    7,424;
+    7,424; the walk's work as the kernel walks it (:class:`WalkCount`,
+    and the id-order walk it replaced), on the 4K frame on a slab of rows;
 14. bilinear filtering (K2, the ``BILINEAR`` instantiations) against its
     plain version at 256x64 d3 and 800x600 d15, ``render()`` with
     ``filter='bilinear'`` through it, K2 and K1 times at 800x600 d15 and
@@ -47,7 +48,7 @@ Phases, one line each; any failure raises and the exit code is nonzero:
 16. the triangle-query kernel (K6, ``csrc/tri_query.cu``) against its plain
     version: closest hits, strict and inclusive blocker tests, on 512x384
     primary rays and on random rays, over 7,424 and 163,840 triangles,
-    with times and bounds;
+    with times, bounds and the walk's work as the kernel walks it;
 17. the tracer engine on the card: ``render(engine='tracer')`` at 512x384
     d3 against K1 (canonical scene) and K3 (7,424 triangles), one of them
     under the profiler (CUDA kernels, device busy share), raypng
@@ -208,15 +209,15 @@ def bound(records, packed, cfg, with_records, walks=None):
 
 
 class TreeSearch:
-    """The plain version's triangle search walked through the kernel's AABB
-    tree as ``tri_walk`` in ``csrc/megakernel.cu`` walks it, which counts
-    the work the tree leaves: box tests (``boxes``) and (ray, triangle)
-    Möller–Trumbore pairs (``pairs``).  Its answers are the brute force's
-    (the boxes are grown to be conservative).  The counts are a lower bound
-    of the kernel's: a closest-hit walk is counted with its final bound
-    (the kernel's shrinks as hits land), a shadow feeler up to its first
-    opaque triangle (the kernel stops there).  Rays go in chunks of
-    ``chunk`` to bound the pair lists."""
+    """The plain version's triangle search walked through the kernels' AABB
+    tree level by level, which counts the work the tree leaves for the
+    bound: box tests (``boxes``) and (ray, triangle) Möller–Trumbore pairs
+    (``pairs``).  Its answers are the brute force's (the boxes are grown to
+    be conservative).  The counts are a lower bound of a walk's: a
+    closest-hit walk is counted with its final bound (the kernel's,
+    :class:`WalkCount`, prunes with the bound it has so far), a shadow
+    feeler in id order up to its first opaque triangle.  Rays go in chunks
+    of ``chunk`` to bound the pair lists."""
 
     def __init__(self, tris, chunk=1 << 15):
         self.tris, self.chunk = tris, chunk
@@ -277,10 +278,10 @@ class TreeSearch:
                 for a in range(0, lanes[0].shape[0], self.chunk)]
         return tuple(torch.cat(parts) for parts in zip(*outs))
 
-    def closest(self, o, d, lt, bt):
+    def closest(self, o, d, lt, bt, pixels=None):
         return self._chunked(self._closest, o, d, lt, bt)
 
-    def blocked(self, p, q, tmax):
+    def blocked(self, p, q, tmax, pixels=None):
         return self._chunked(self._blocked, p, q, tmax)
 
     def _closest(self, o, d, lt, bt):
@@ -320,6 +321,356 @@ class TreeSearch:
             0, lane[rel & transp], torch.ones_like(lane[rel & transp]))
         self._walk(p, inv, tmax, first)
         return first < self.tris.n, count
+
+
+# the lowest set bit of each byte (8 for none)
+LOWBIT = torch.tensor([next((j for j in range(8) if m >> j & 1), 8)
+                       for m in range(256)])
+
+
+class WalkCount:
+    """The triangle walk of ``csrc/tri_walk.cuh`` emulated ray by ray, all
+    rays in lockstep, with its answers and its counts of work.
+
+    ``order='nearest'`` is the walk the kernels run: wide steps (the 8
+    children of a node tested at once), children the closest-hit query
+    meets taken by entry t and tested again against the shrunk bound when
+    taken up, a feeler's in id order.  ``order='id'`` is the stackless walk
+    it replaced (one box test per child, children in id order), counted the
+    same way.  Both prune with the running bound, as the kernel does.
+
+    ``group`` is the lanes per ray (1: a thread alone, the megakernel and the
+    old K6; K6's QUERY_GROUP): a group tests a whole leaf before a feeler
+    stops, a thread stops at the first opaque triangle.  Per ray it counts
+    box tests (``boxes``), Möller–Trumbore tests (``pairs``) and serial steps
+    (a box or leaf test alone; a wide step, a retest or a leaf of a group);
+    per warp of the kernel's lane layout (32 consecutive rays; a group's
+    queue of rays that enter the root box; the megakernel's 16x2 pixels,
+    from the ``pixels`` a plain render passes and ``width``) the union of
+    its lanes' tests, and the slowest warp.  ``summary()`` adds them up over
+    the queries so far."""
+
+    def __init__(self, tris, order="nearest", group=1, width=None):
+        self.tris, self.order, self.group, self.width = tris, order, group, width
+        dev = tris.node.device
+        self.off = torch.tensor([sum(tris.level_n[:i])
+                                 for i in range(len(tris.level_n))],
+                                device=dev)
+        self.cnt = torch.tensor(tris.level_n, device=dev)
+        self.lowbit = LOWBIT.to(dev)
+        self.totals = dict(queries=0, rays=0, live=0, boxes=0, pairs=0,
+                           steps=0, union_boxes=0, union_pairs=0, warps=0)
+        self.slowest = dict(boxes=0, pairs=0)     # of one warp
+        self.slowest_ray = dict(boxes=0, pairs=0, steps=0)
+
+    # -- the tests, as the kernel's f32 operations --
+    def _box(self, k, o, inv, bound):
+        """(hit, entry t) of boxes k [R, ...] for rays [R, 3]."""
+        box = self.tris.node[k]
+        oo, ii = o.view(-1, *([1] * (k.dim() - 1)), 3), inv.view(
+            -1, *([1] * (k.dim() - 1)), 3)
+        t0 = (box[..., 0:3] - oo) * ii
+        t1 = (box[..., 4:7] - oo) * ii
+        near, far = torch.fmin(t0, t1), torch.fmax(t0, t1)
+        tmn = torch.fmax(torch.fmax(torch.fmax(torch.zeros_like(near[..., 0]),
+                                               near[..., 0]), near[..., 1]),
+                         near[..., 2])
+        b = bound.view(-1, *([1] * (k.dim() - 1)))
+        tmx = torch.fmin(torch.fmin(torch.fmin(b.expand_as(tmn), far[..., 0]),
+                                    far[..., 1]), far[..., 2])
+        return tmn <= tmx, tmn
+
+    def _leaf(self, o, d, leaf):
+        """(triangle ids [R, block], valid, hit, t, transparent)."""
+        t = self.tris
+        tri = leaf[:, None] * t.block + torch.arange(t.block, device=o.device)
+        valid = tri < t.n
+        tri = tri.clamp(max=t.n - 1)
+        hit, tt = pr.intersect_triangle_edges(o[:, None], d[:, None], t.v0[tri],
+                                              t.e1[tri], t.e2[tri])
+        return tri, valid, hit & valid, tt, t.transparent[tri]
+
+    # -- the queries --
+    def closest(self, o, d, lt, bt, pixels=None):
+        n, dev = o.shape[0], o.device
+        s = dict(tbest=torch.full((n,), float("inf"), device=dev),
+                 wbest=torch.full((n,), -1, dtype=torch.int64, device=dev),
+                 lblock=torch.zeros(n, dtype=torch.bool, device=dev))
+        lt_seg = torch.where(torch.isfinite(lt), lt, torch.zeros_like(lt))
+
+        def bound(r):
+            b = torch.minimum(bt[r], s["tbest"][r])
+            return torch.where(s["lblock"][r], b, torch.maximum(lt_seg[r], b))
+
+        def leaf(r, lf):
+            tri, valid, hit, t, transp = self._leaf(o[r], d[r], lf)
+            tm = torch.where(hit, t, torch.full_like(t, float("inf")))
+            tmin, arg = tm.min(1)       # the first of equal t: the lowest id
+            win = tri.gather(1, arg[:, None])[:, 0]
+            tb, wb = s["tbest"][r], s["wbest"][r]
+            better = (tmin < tb) | ((tmin == tb) & (win < wb))
+            s["tbest"][r] = torch.where(better, tmin, tb)
+            s["wbest"][r] = torch.where(better, win, wb)
+            s["lblock"][r] |= (hit & ~transp & (t <= lt[r, None])).any(1)
+            return valid.sum(1), torch.zeros_like(lf, dtype=torch.bool)
+
+        self._run(o, d, bound, leaf, True, pixels)
+        return s["tbest"], s["wbest"], s["lblock"]
+
+    def blocked(self, p, q, tmax, pixels=None, inclusive=False):
+        n, dev = p.shape[0], p.device
+        blocked = torch.zeros(n, dtype=torch.bool, device=dev)
+        count = torch.zeros(n, dtype=torch.int64, device=dev)
+
+        def leaf(r, lf):
+            tri, valid, hit, t, transp = self._leaf(p[r], q[r], lf)
+            tm = tmax[r, None]
+            rel = hit & ((t <= tm) if inclusive else (t < tm))
+            opaque = rel & ~transp
+            stop = opaque.any(1)
+            tested = valid.sum(1)
+            cross = rel & transp
+            if self.group == 1:    # a thread stops at the opaque triangle
+                first = torch.where(opaque, torch.arange(
+                    opaque.shape[1], device=dev), opaque.shape[1]).min(1).values
+                before = torch.arange(opaque.shape[1], device=dev) < first[:, None]
+                cross = cross & before
+                tested = torch.where(stop, first + 1, tested)
+            blocked[r] |= stop
+            count[r] += cross.sum(1)
+            return tested, stop
+
+        active = tmax > 0
+        self._run(p, q, lambda r: tmax[r], leaf, False, pixels, active)
+        return blocked, count
+
+    # -- the walks --
+    def _run(self, o, d, bound, leaf, closest, pixels, active=None):
+        n, dev = o.shape[0], o.device
+        inv = 1.0 / torch.where(d.abs() < 1e-12, torch.full_like(d, 1e-12), d)
+        nearest = self.order == "nearest" and closest
+        boxes = torch.zeros(n, dtype=torch.int64, device=dev)
+        pairs = torch.zeros_like(boxes)
+        steps = torch.zeros_like(boxes)
+        rec_box, rec_leaf = [], []       # (ray, node) and (ray, leaf, tests)
+        r = torch.arange(n, device=dev)
+        if active is not None:
+            r = r[active[r]]
+        hit, _ = self._box(torch.zeros_like(r), o[r], inv[r], bound(r))
+        boxes[r] += 1
+        steps[r] += 1
+        rec_box.append((r, torch.zeros_like(r)))
+        live = r[hit]
+        last = len(self.tris.level_n) - 1
+        lvl = torch.zeros(n, dtype=torch.int64, device=dev)
+        cur = torch.zeros_like(lvl)
+        pend = torch.zeros_like(lvl)
+
+        def wide(r, lc, par, want):
+            """One wide step (or retest) of rays r: (hit mask, nearest or
+            lowest hit child)."""
+            first = par * 8
+            j = torch.arange(8, device=dev)
+            valid = ((first[:, None] + j) < self.cnt[lc][:, None]) & (
+                (want[:, None] >> j) & 1).bool()
+            k = (self.off[lc][:, None] + first[:, None] + j).clamp(
+                max=self.tris.node.shape[0] - 1)
+            h, tmn = self._box(k, o[r], inv[r], bound(r))
+            h &= valid
+            boxes[r] += valid.sum(1)
+            steps[r] += 1
+            rr, kk = r[:, None].expand_as(k)[valid], k[valid]
+            rec_box.append((rr, kk))
+            mask = (h.long() << j).sum(1)
+            if nearest:
+                pick = torch.where(h, tmn, torch.full_like(tmn, float(
+                    "inf"))).argmin(1)
+            else:
+                pick = self.lowbit[mask]
+            return mask, pick
+
+        def bit(j):
+            return torch.ones_like(j) << j
+
+        def up_to_pending(r):
+            """Rays r after a leaf or a miss: up to the deepest level with a
+            child to visit; returns the rays that go on."""
+            go = []
+            while r.numel():
+                top = lvl[r] == 0
+                r = r[~top]
+                if not r.numel():
+                    break
+                lv = lvl[r]
+                m = (pend[r] >> (8 * lv)) & 0xFF
+                pend[r] &= ~(torch.full_like(lv, 0xFF) << (8 * lv))
+                j = self.lowbit[m]
+                if nearest:
+                    re = m != 0
+                    if bool(re.any()):
+                        rr = r[re]
+                        m2, j2 = wide(rr, lvl[rr], cur[rr] // 8, m[re])
+                        m[re], j[re] = m2, j2
+                has = m != 0
+                rh, mh, jh = r[has], m[has], j[has]
+                pend[rh] |= (mh & ~bit(jh)) << (8 * lvl[rh])
+                cur[rh] = cur[rh] - cur[rh] % 8 + jh
+                go.append(rh)
+                r = r[~has]
+                lvl[r] -= 1
+                cur[r] //= 8
+            return torch.cat(go) if go else r
+
+        if self.order == "nearest":
+            while live.numel():
+                at_leaf = lvl[live] == last
+                lf, inner = live[at_leaf], live[~at_leaf]
+                nxt, back = [], []
+                if lf.numel():
+                    tested, stop = leaf(lf, cur[lf])
+                    pairs[lf] += tested
+                    steps[lf] += 1
+                    rec_leaf.append((lf, cur[lf], tested))
+                    back.append(lf[~stop])
+                if inner.numel():
+                    m, j = wide(inner, lvl[inner] + 1, cur[inner],
+                                torch.full_like(inner, 0xFF))
+                    down = m != 0
+                    rd = inner[down]
+                    lvl[rd] += 1
+                    pend[rd] |= (m[down] & ~bit(j[down])) << (8 * lvl[rd])
+                    cur[rd] = cur[rd] * 8 + j[down]
+                    nxt.append(rd)
+                    back.append(inner[~down])
+                nxt.append(up_to_pending(torch.cat(back)))
+                live = torch.cat(nxt).sort().values
+        else:   # id order, one box at a time (the stackless walk it replaced)
+            if last:                       # from the root to its first child
+                lvl[live] = 1
+            while live.numel():
+                lv = lvl[live]
+                leafs = lv == last
+                k = self.off[lv] + cur[live]
+                h, _ = self._box(k, o[live], inv[live], bound(live))
+                if last:
+                    boxes[live] += 1
+                    steps[live] += 1
+                    rec_box.append((live, k))
+                else:                      # a lone leaf: the root's test
+                    h = torch.ones_like(h)
+                stop = torch.zeros_like(h)
+                if bool((h & leafs).any()):
+                    lf = live[h & leafs]
+                    tested, stop[h & leafs] = leaf(lf, cur[lf])
+                    pairs[lf] += tested
+                    steps[lf] += 1
+                    rec_leaf.append((lf, cur[lf], tested))
+                down = live[h & ~leafs]
+                lvl[down] += 1
+                cur[down] *= 8
+                adv = live[~(h & ~leafs) & ~stop]
+                while adv.numel():     # climb while at a last child
+                    lv, c = lvl[adv], cur[adv]
+                    climb = (lv > 0) & ((c % 8 == 7) | (c + 1 == self.cnt[lv]))
+                    if not bool(climb.any()):
+                        break
+                    cur[adv[climb]] //= 8
+                    lvl[adv[climb]] -= 1
+                adv = adv[lvl[adv] > 0]
+                cur[adv] += 1
+                live = torch.cat([down, adv]).sort().values
+        self._tally(n, r, hit, boxes, pairs, steps, rec_box, rec_leaf, pixels)
+
+    def _tally(self, n, rays, live, boxes, pairs, steps, rec_box, rec_leaf,
+               pixels):
+        dev = boxes.device
+        if pixels is not None:      # the megakernel's 16x2-pixel warps
+            row, col = pixels // self.width, pixels % self.width
+            warp = (row // 2) * -(-self.width // 16) + col // 16
+        elif self.group == 1:       # 32 consecutive rays
+            warp = torch.arange(n, device=dev) // 32
+        else:                       # the queue of rays in the root box
+            warp = torch.full((n,), -1, dtype=torch.int64, device=dev)
+            warp[rays[live]] = torch.arange(int(live.sum()), device=dev) // (
+                32 // self.group)
+        t = self.totals
+        t["queries"] += 1
+        t["rays"] += n
+        t["live"] += int(live.sum())
+        for key, v in (("boxes", boxes), ("pairs", pairs), ("steps", steps)):
+            t[key] += int(v.sum())
+        if n and int(steps.max()) > self.slowest_ray["steps"]:
+            k = int(torch.argmax(steps))
+            self.slowest_ray = dict(boxes=int(boxes[k]), pairs=int(pairs[k]),
+                                    steps=int(steps[k]))
+        # per warp: the distinct boxes its lanes test, and per leaf the most
+        # triangles one of its lanes tests there
+        nodes = self.tris.node.shape[0]
+        rb = torch.cat([a for a, _ in rec_box])
+        kb = torch.cat([b for _, b in rec_box])
+        keep = warp[rb] >= 0      # a group's rays that miss the root: no warp
+        wb = torch.unique(warp[rb[keep]] * nodes + kb[keep]).div(
+            nodes, rounding_mode="floor")
+        w_ids, w_boxes = torch.unique(wb, return_counts=True)
+        per_warp = torch.zeros(int(warp.max()) + 1 if n else 0, 2,
+                               dtype=torch.int64, device=dev)
+        per_warp[w_ids, 0] = w_boxes
+        if rec_leaf:
+            rl, ll, tl = (torch.cat(x) for x in zip(*rec_leaf))
+            key, inv_k = torch.unique(warp[rl] * nodes + ll,
+                                      return_inverse=True)
+            most = torch.zeros(key.shape[0], dtype=torch.int64,
+                               device=dev).scatter_reduce(0, inv_k, tl, "amax")
+            per_warp[:, 1].index_add_(0, key.div(nodes, rounding_mode="floor"),
+                                      most)
+        t["warps"] += int(w_ids.numel())
+        t["union_boxes"] += int(per_warp[:, 0].sum())
+        t["union_pairs"] += int(per_warp[:, 1].sum())
+        if per_warp.shape[0]:
+            w = int(torch.argmax(per_warp.sum(1)))
+            b, p_ = (int(x) for x in per_warp[w])
+            if b + p_ > self.slowest["boxes"] + self.slowest["pairs"]:
+                self.slowest = dict(boxes=b, pairs=p_)
+
+    def summary(self):
+        """One line of the counts so far."""
+        t = self.totals
+        union = t["union_boxes"] + t["union_pairs"]
+        # a warp of single-lane walks runs the union of its lanes' tests
+        eff = (f", lane efficiency {(t['boxes'] + t['pairs']) / (32 * union):.3f}"
+               if self.group == 1 and union else "")
+        rays = max(t["rays"], 1)
+        return (f"{self.order} order, {self.group} lane(s) per ray: "
+                f"{t['boxes']:,} box tests, {t['pairs']:,} Möller–Trumbore "
+                f"tests over {t['rays']:,} rays ({t['boxes'] / rays:.3f} and "
+                f"{t['pairs'] / rays:.3f} per ray; {t['live']:,} in the root "
+                f"box), warp unions {t['union_boxes']:,} and "
+                f"{t['union_pairs']:,}{eff}, slowest warp {self.slowest['boxes']} "
+                f"box and {self.slowest['pairs']} triangle tests, slowest ray "
+                f"{self.slowest_ray['steps']} steps ({self.slowest_ray['boxes']}"
+                f" box, {self.slowest_ray['pairs']} triangle tests)")
+
+
+class WalkCounts:
+    """Several :class:`WalkCount` on the same queries (a plain render's
+    ``tri_search``); the answers are the first one's."""
+
+    def __init__(self, *walks):
+        self.walks = walks
+
+    def closest(self, *args, **kw):
+        return [w.closest(*args, **kw) for w in self.walks][0]
+
+    def blocked(self, *args, **kw):
+        return [w.blocked(*args, **kw) for w in self.walks][0]
+
+
+def query_group():
+    """Lanes per ray of the triangle-query kernel (csrc/tri_query.cu)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(pr.__file__)),
+                        "csrc", "tri_query.cu")
+    with open(path) as f:
+        return int(re.search(r"#define QUERY_GROUP (\d+)", f.read()).group(1))
 
 
 def profile_step(step, what):
@@ -572,6 +923,22 @@ def mesh_phases(tt, dev, card, assets, camera, asset_args):
         text = (f"{where(key, cfg, 0)}: kernel {kernel_ms:.4f} ms "
                 f"({width * height / kernel_ms / 1e3:.2f} Mrays/s), bound "
                 f"{bound_ms:.5f} ms ({bound_by}; {counts})")
+        # the walk as the kernel walks it (16x2-pixel warps), and the id
+        # order it replaced; on the 4K frame, on the slab
+        rows, row0 = (slab[1], slab[0]) if slab else (None, 0)
+        cpacked, ccfg, _ = inputs(key, width, height, depth, rows, row0)
+        walk_counts = WalkCounts(*(WalkCount(packed.tris, order,
+                                             width=width)
+                                   for order in ("nearest", "id")))
+        img = render_megakernel_reference(cpacked, assets, ccfg,
+                                          tri_search=walk_counts)
+        agree, _, _ = agreement(render_megakernel(cpacked, assets, ccfg), img)
+        if agree < AGREE_FRAC:
+            raise RuntimeError(f"the walk's count disagrees with the kernel "
+                               f"({agree:.6f} within {AGREE_ABS})")
+        text += (f"; the walk on {where(key, ccfg, row0)}: " + "; ".join(
+            w.summary() for w in walk_counts.walks))
+        del img
         if slab is None:
             plain_ms = cuda_time_ms(lambda: render_megakernel_reference(
                 packed, assets, cfg), warmup=0, iters=1)[0]
@@ -917,11 +1284,17 @@ def query_phase(tt, dev, card, scenes, camera):
             plain_ms = (cuda_time_ms(lambda: plain(tables, *args), warmup=0,
                                      iters=1)[0] if key == "k3" else None)
             walks = TreeSearch(tables)
+            # the walk as the kernel walks it, and as the one-thread,
+            # id-order walk it replaced did
+            kernel_walks = (WalkCount(tables, "nearest", query_group()),
+                            WalkCount(tables, "id", 1))
             if mode == "closest":
                 inf = torch.full_like(tmax, float("inf"))
-                walks.closest(po, pd, -inf, inf)
+                for w in (walks, *kernel_walks):
+                    w.closest(po, pd, -inf, inf)
             else:
-                walks.blocked(po, pd, tmax)
+                for w in (walks, *kernel_walks):
+                    w.blocked(po, pd, tmax)
             flops = walks.boxes * BOX_FLOPS + walks.pairs * MT_FLOPS
             nbytes = po.shape[0] * QUERY_RAY_BYTES[mode] + 4 * (
                 tables.geom.numel() + tables.node.numel())
@@ -935,7 +1308,8 @@ def query_phase(tt, dev, card, scenes, camera):
                 f"{tables.n:,} triangles, {mode} on 512x384 primary rays: "
                 f"kernel {ms:.4f} ms{plain_text}, bound {bound_ms:.5f} ms "
                 f"({bound_by}; {walks.boxes:,} box tests, {walks.pairs:,} "
-                "pairs)")
+                "pairs with the final bound); the walk: " + "; ".join(
+                    w.summary() for w in kernel_walks))
         entries[key] = timed
         torch.cuda.empty_cache()
     phase(16, "triangle-query kernel vs plain", f"{card}: "

@@ -275,6 +275,55 @@ def test_query_kernels_match_plain_versions(cuda):
         assert not bool(blocked[tmax <= 0].any())
 
 
+def test_query_kernels_take_the_lowest_id_among_ties(cuda):
+    """K6 on the tie mesh: closest t and ids, blocker flags (tmax past and
+    exactly at the hit) and counts where not blocked equal the plain
+    version's."""
+    from tpuray_torch.kernels import query
+    from tpuray_torch.kernels.triblocks import build_query_tables
+
+    v0, v1, v2, transp, o, d = (torch.from_numpy(x).to(cuda)
+                                for x in tie_triangles())
+    tables = build_query_tables(v0, v1, v2, transp)
+    t, wid = query.tri_query_closest(tables, o, d)
+    t_ref, wid_ref = query.tri_query_closest_reference(tables, o, d)
+    hit = torch.isfinite(t_ref)
+    assert torch.equal(t, t_ref) and torch.equal(wid, wid_ref)
+    assert bool((wid[hit] // 16 % 2 == 0).all())
+    for tmax in (t_ref * 1.5, t_ref):
+        tmax = torch.where(hit, tmax, torch.full_like(t_ref, 4.0))
+        for inclusive in (False, True):
+            blocked, count = query.tri_query_blocker(tables, o, d, tmax,
+                                                     inclusive)
+            b_ref, c_ref = query.tri_query_blocker_reference(
+                tables, o, d, tmax, inclusive)
+            assert torch.equal(blocked, b_ref)
+            assert torch.equal(count[~b_ref], c_ref[~b_ref])
+
+
+def test_mesh_kernels_take_the_lowest_id_among_ties(cuda):
+    """The megakernel on the tie mesh: its image and its records' triangle
+    ids against the plain versions'."""
+    scene = tie_scene(cuda)
+    cam = tt.Camera((0.1, 0.2, -1.0), (0.0, 0.0, 1.0), 45.0, 1.0)
+    basis = tt.perspective_basis(cam, 128, 96, device=cuda)
+    assets = tt.assets_from_arrays(*tt.random_asset_arrays(0, 256, 256),
+                                   cuda)
+    cfg = tt.RenderConfig(width=128, height=96, max_depth=3,
+                          shadow_samples=2)
+    packed = pack_scene(scene, basis)
+    got = render_megakernel(packed, assets, cfg)
+    want = render_megakernel_reference(packed, assets, cfg)
+    assert (((got - want).abs().amax(-1) < 1e-3).float().mean()) >= 0.999
+    img, rec = render_megakernel_record(packed, assets, cfg)
+    _, plain = render_megakernel_record_reference(packed, assets, cfg)
+    assert torch.equal(img, got)
+    tri = (plain["rec"] & 0xFF) == 126
+    assert int(tri.sum()) > 1000
+    assert torch.equal(rec["wid"], plain["wid"])
+    assert bool((plain["wid"][tri] // 16 % 2 == 0).all())
+
+
 @pytest.mark.parametrize("mesh", [False, True], ids=["canonical", "mesh"])
 def test_tracer_on_the_card_matches_the_cpu(cuda, mesh):
     """The whole-image tracer on the card (triangle queries through the
@@ -314,6 +363,68 @@ def crowded_spec(n_spheres=0, n_lights=0):
     spec.lights += [tt.LightSpec((0.1 * i, 9.0, 9.0), 0.05, 1.0, (1, 1, 1))
                     for i in range(n_lights)]
     return spec
+
+
+def tie_triangles(cells=12):
+    """A mesh of ties for the triangle walk: (v0, v1, v2 [T, 3] f32,
+    transparent [T] bool) in the order the tables take, and rays (o, d)
+    [R, 3] along +z through it.  Cell c (a square of the plane z = 5) owns
+    two leaf blocks: block 2c holds a big triangle, a coplanar one that
+    overlaps it, and 14 specks at z = 9; block 2c + 1 holds duplicates of
+    the two (same vertices, higher ids) and 14 specks at z = 1.  So the box
+    with the nearer entry (z = 1) holds the higher ids, and a ray that hits
+    the big triangle meets two equal t.  Which duplicates are transparent
+    varies with the cell."""
+    v0, v1, v2, transp = [], [], [], []
+
+    def tri(a, b, c, z, clear=False):
+        for out, (x, y) in zip((v0, v1, v2), (a, b, c)):
+            out.append((x, y, z))
+        transp.append(clear)
+
+    for c in range(cells):
+        cx, cy = c % 4 - 1.5, c // 4 - 1.0
+        big = ((cx - 0.45, cy - 0.45), (cx + 0.45, cy - 0.45),
+               (cx - 0.45, cy + 0.45))
+        over = ((cx - 0.2, cy - 0.2), (cx + 0.45, cy + 0.4),
+                (cx - 0.2, cy + 0.45))
+        speck = ((cx + 0.44, cy + 0.44), (cx + 0.45, cy + 0.44),
+                 (cx + 0.44, cy + 0.45))
+        for z, first in ((9.0, True), (1.0, False)):
+            tri(*big, 5.0, clear=not first and c % 3 == 0)
+            tri(*over, 5.0, clear=first and c % 2 == 1)
+            for _ in range(14):
+                tri(*speck, z)
+    v0, v1, v2 = (np.asarray(v, dtype=np.float32) for v in (v0, v1, v2))
+    rng = np.random.default_rng(5)
+    n = 4096
+    o = np.zeros((n, 3), np.float32)
+    o[:, 0] = rng.uniform(-2.0, 2.0, n)
+    o[:, 1] = rng.uniform(-1.5, 1.5, n)
+    d = np.zeros((n, 3), np.float32)
+    d[:, 2] = 1.0
+    d[n // 2:, :2] = rng.normal(scale=0.05, size=(n - n // 2, 2))
+    return v0, v1, v2, np.asarray(transp), o, d
+
+
+def tie_scene(device):
+    """The tie mesh as a scene, its triangles in the order given (no Morton
+    sort): the big triangles and duplicates PLASTIC or GLASS, under a light,
+    seen from z = -1."""
+    v0, v1, v2, transp, _, _ = tie_triangles()
+    base = tt.build_scene(tt.SceneSpec(
+        lights=[tt.LightSpec((0.5, 1.0, -2.0), 0.3, 2.0, (1, 1, 1))],
+        triangles=[tt.TriangleSpec((0, 0, 0), (1, 0, 0), (0, 1, 0), tt.PLASTIC),
+                   tt.TriangleSpec((0, 0, 1), (1, 0, 1), (0, 1, 1), tt.GLASS)]),
+        device)
+    row = torch.from_numpy(transp.astype(np.int64)).to(device)
+    row = torch.where(row.bool(), base.tri_mat.transparent.long().argmax(),
+                      base.tri_mat.transparent.long().argmin())
+    mat = tt.Materials(**{f.name: getattr(base.tri_mat, f.name)[row]
+                          for f in dataclasses.fields(tt.Materials)})
+    verts = [torch.from_numpy(v).to(device) for v in (v0, v1, v2)]
+    return dataclasses.replace(base, tri_v0=verts[0], tri_v1=verts[1],
+                               tri_v2=verts[2], tri_mat=mat)
 
 
 def many_triangles(scene, n):

@@ -38,7 +38,7 @@ from tpuray_torch.kernels.megakernel import (pack_scene,
                                              render_megakernel_record)
 from tpuray_torch.kernels.replay import replay_render
 from tpuray_torch.meshes import add_mesh, mesh_benchmark_scene
-from test_torch_cuda import many_triangles
+from test_torch_cuda import many_triangles, tie_triangles
 from test_torch_megakernel import (AGREE_FRAC, _assets_pair, chaotic_pixels,
                                    jax_scene_arrays)
 from test_torch_record import decode, picks_in_event_order
@@ -201,6 +201,48 @@ def test_tree_walk_answers_as_brute_force_does():
     assert torch.equal(count_w[~blocked_w], count_b[~blocked_b])
     assert blocked_b.any() and (count_b > 0).any()
     assert 0 < walk.pairs < 2 * n * tris.n and walk.boxes > 0
+    # the kernels' walk, in its order and in the id order it replaced, by a
+    # thread alone and by a group of lanes
+    for order in ("nearest", "id"):
+        for group in (1, 16):
+            kernel_walk = chip_smoke.WalkCount(tris, order, group)
+            t_k, wid_k, lb_k = kernel_walk.closest(o, d, lt, bt)
+            assert torch.equal(t_k < bt, won)
+            assert torch.equal(t_k[won], t_b[won])
+            assert torch.equal(wid_k[won], wid_b[won])
+            assert torch.equal(lb_k[lit], lb_b[lit])
+            blocked_k, count_k = kernel_walk.blocked(o, d, tmax)
+            assert torch.equal(blocked_k, blocked_b)
+            assert torch.equal(count_k[~blocked_k], count_b[~blocked_b])
+            assert kernel_walk.totals["pairs"] < 2 * n * tris.n
+
+
+@pytest.mark.parametrize("order", ["nearest", "id"])
+@pytest.mark.parametrize("group", [1, 16])
+def test_walk_takes_the_lowest_id_among_ties(order, group):
+    """On the tie mesh (duplicated and coplanar triangles, the nearer box
+    holding the higher ids) the walk's closest hits and winners, and its
+    blocker flags and counts with tmax past and exactly at the hit, equal
+    brute force: the lowest id wins among equal t whatever the order."""
+    v0, v1, v2, transp, o, d = (torch.from_numpy(x)
+                                for x in tie_triangles())
+    tables = triblocks.build_query_tables(v0, v1, v2, transp)
+    brute = triblocks.BruteForce(tables)
+    walk = chip_smoke.WalkCount(tables, order, group)
+    t, wid, _ = brute.closest(o, d)
+    inf = torch.full_like(t, float("inf"))
+    t_w, wid_w, _ = walk.closest(o, d, -inf, inf)
+    hit = torch.isfinite(t)
+    assert torch.equal(t_w, t) and torch.equal(wid_w, wid)
+    # the duplicates in the nearer box lose to the lower ids
+    assert int(hit.sum()) > 1000 and bool((wid[hit] // 16 % 2 == 0).all())
+    for tmax in (t * 1.5, t):
+        tmax = torch.where(hit, tmax, torch.full_like(t, 4.0))
+        for inclusive in (False, True):
+            blocked, count = brute.blocked(o, d, tmax, inclusive)
+            blocked_w, count_w = walk.blocked(o, d, tmax, inclusive=inclusive)
+            assert torch.equal(blocked_w, blocked)
+            assert torch.equal(count_w[~blocked], count[~blocked])
 
 
 def test_cap_is_checked_before_building():

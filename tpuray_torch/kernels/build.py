@@ -145,11 +145,14 @@ def load_library() -> KernelLibrary:
     query = [p, p, i, i,       # triangle geom, node, count, levels
              p, i, i,          # nodes per level (host), block, fanout
              i, p, p]          # rays, o, d
-    lib.tpuray_tri_query_closest.argtypes = [*query, p, p, p]  # t, id, stream
+    scratch = [p, p]           # queue, counters
+    lib.tpuray_tri_query_closest.argtypes = [*query, p, p,  # t, id
+                                             *scratch, p]   # stream
     lib.tpuray_tri_query_closest.restype = i
     lib.tpuray_tri_query_blocker.argtypes = [
         *query, p, i,          # tmax, inclusive
-        p, p, p]               # blocked, count, stream
+        p, p,                  # blocked, count
+        *scratch, p]           # stream
     lib.tpuray_tri_query_blocker.restype = i
     lib.tpuray_error_string.argtypes = [i]
     lib.tpuray_error_string.restype = ctypes.c_void_p

@@ -50,17 +50,17 @@
 // through VMEM past 32,768 triangles; here the tables (triblocks.py) sit in
 // device memory, the hot part in L2 (50 MB: 524,288 triangles take 25 MB of
 // geometry), and each thread walks an implicit AABB tree (the whole mesh,
-// unions of 8 nodes, blocks of 16 Morton-ordered triangles) with a slab
-// test per node and an f32 Moller-Trumbore test per triangle of a block it
-// enters, read through __ldg as three float4 (tri_walk.cuh, shared with the
-// triangle-query kernel tri_query.cu).  The closest-hit walk skips
-// every box beyond max(t_light, min(best solid, best triangle)) (:1219),
-// which shrinks as hits land; a shadow feeler stops at its first opaque
-// triangle.  What bounds it is again issue rate and divergence, now of the
-// walk: the rays of a warp enter different boxes and the warp runs the
-// union of their paths.  With the walk inlined ptxas gives 80 registers and
-// a 928-byte frame with 24 B of spill stores (1056 bytes, 164 B in record
-// mode).  Wider trees, warp-coherent traversal or a real BVH are later work.
+// unions of 8 nodes, blocks of 16 Morton-ordered triangles) with the walk
+// of tri_walk.cuh, shared with the triangle-query kernel tri_query.cu: the
+// 8 children of a node tested in one wide step, nearest child first for
+// the closest hit, boxes and triangles read through __ldg.  The closest-hit
+// walk skips every box beyond max(t_light, min(best solid, best triangle))
+// (:1219), which shrinks as hits land; a shadow feeler stops at its first
+// opaque triangle.  What bounds it is the latency of the walk's dependent
+// loads and divergence: the rays of a warp enter different boxes and the
+// warp runs the union of their paths.  A pixel keeps its thread, since its
+// DFS and shading state live in registers (ptxas's figures for each
+// instantiation: PERF.md).
 //
 // Why a thread per pixel: the TPU kernel's 16x128 tiles, one-hot selects and
 // VMEM stacks exist because the TPU has vector registers and no gather.  A
@@ -68,8 +68,7 @@
 // memory, cached in L1) and can read texels from device memory, so the
 // reference's per-pixel loop (raytracing.cl:14-195) maps onto a thread
 // directly and the texels are fetched in-kernel: no event buffers, no
-// resolve pass, no overflow.  Warp-level ray compaction and work queues
-// for divergent pixels are later work.
+// resolve pass, no overflow.
 //
 // Semantics follow the TPU kernel operation for operation; the plain
 // PyTorch version render_megakernel_reference (megakernel.py) is the same
@@ -378,7 +377,7 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
       if constexpr (TRIS) {
         float tt = INF;
         int w = -1;
-        tri_closest(T, o, d, lt, bt, tt, w, lblock);
+        tri_closest(T, o, d, lt, bt, tt, w, lblock, Lanes<1>());
         if (tt < bt) {
           bt = tt;
           bwin = TRI_CODE;
@@ -551,7 +550,7 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
             if constexpr (TRIS) {
               if (!blocked) {
                 int crossed = 0;
-                blocked = tri_feeler<false>(T, ph, q, tmax, crossed);
+                blocked = tri_feeler<1, false>(T, ph, q, tmax, crossed, Lanes<1>());
                 if (crossed) opac *= powf(TRI_THROUGH, (float)crossed);
               }
             }

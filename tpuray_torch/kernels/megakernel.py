@@ -204,8 +204,9 @@ def render_megakernel_reference(packed: PackedScene, assets: SceneAssets,
     and follows the refracted one) or continue along the reflected ray.
 
     ``tri_search`` answers the triangle queries of a step (the interface
-    of :class:`triblocks.BruteForce`, the default); a measurement may pass
-    one that also counts the work the kernel's culls leave.
+    of :class:`triblocks.BruteForce`, the default, which takes each ray's
+    pixel, ``pixels``, and ignores it); a measurement may pass one that
+    also counts the work the kernel's walk does.
     """
     return _trace_reference(packed, assets, cfg, None, tri_search)[0]
 
@@ -329,7 +330,7 @@ def _trace_reference(packed: PackedScene, assets: SceneAssets,
             wk = work.nonzero().squeeze(1)
             if wk.numel():
                 t_tri[wk], w_tri[wk], lb_tri = tri_search.closest(
-                    O[wk], Dd[wk], lt[wk], bt[wk])
+                    O[wk], Dd[wk], lt[wk], bt[wk], pixels=act[wk])
                 lblock[wk] |= lb_tri
             tri_better = t_tri < bt
             bt = torch.where(tri_better, t_tri, bt)
@@ -419,7 +420,7 @@ def _trace_reference(packed: PackedScene, assets: SceneAssets,
         if bool(is_solid.any()):
             acc, rng_sh, ssrs = _shade(O, ph, nrm, mat, F, RNG, sph, s_transp,
                                        pln, lgt, n_samples, through, record,
-                                       tri_search)
+                                       tri_search, act)
             cx2 = torch.where(is_solid[:, None], cx2 + acc, cx2)
             RNG = torch.where(is_solid, rng_sh, RNG)
 
@@ -531,7 +532,7 @@ def _fetch(flat, taps, row0, width):
 
 
 def _shade(O, ph, nrm, mat, F, rng, sph, s_transp, pln, lgt, n_samples,
-           through, record=False, tri_search=None):
+           through, record=False, tri_search=None, pixels=None):
     """Soft-shadow Phong of every light at the offset hit points ``ph``
     (raytracing.cl:87-136, pallas_trace.py:1963-2100).  Returns the added
     colour [n, 3], the advanced RNG state and each light's shadow ratio
@@ -542,7 +543,8 @@ def _shade(O, ph, nrm, mat, F, rng, sph, s_transp, pln, lgt, n_samples,
     still draws its samples, which count as blocked.  In record mode the
     gate is geometric only (pallas_trace.py:1998-2012): a light dead only
     because diffuse or specular is 0 keeps its real ratio, which the
-    gradient with respect to diffuse and specular needs."""
+    gradient with respect to diffuse and specular needs.  ``pixels``: the
+    pixel of each lane, for ``tri_search``."""
     diffuse, specular = mat[:, M_DIFFUSE], mat[:, M_SPECULAR]
     shininess = mat[:, M_SHININESS]
     vdir = pr.normalize3(O - ph)
@@ -589,7 +591,8 @@ def _shade(O, ph, nrm, mat, F, rng, sph, s_transp, pln, lgt, n_samples,
                 # blocked (trace.py:342-386)
                 go = (~blocked).nonzero().squeeze(1)
                 if go.numel():
-                    tb, cnt = tri_search.blocked(ph[go], q[go], tmax[go])
+                    tb, cnt = tri_search.blocked(ph[go], q[go], tmax[go],
+                                                 pixels=pixels[go])
                     blocked[go] = tb
                     opac[go] = opac[go] * torch.pow(
                         torch.tensor(TRI_THROUGH, dtype=opac.dtype,

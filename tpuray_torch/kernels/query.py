@@ -71,17 +71,21 @@ def _check(tables: TriTables, o, d, tmax=None):
 
 
 def _launch(name, tables: TriTables, n: int, *args):
+    """One query on the current stream; the kernel's scratch (the queue of
+    rays that enter the mesh's box, and its two counters) is allocated
+    here."""
     from .build import load_library
 
     lib = load_library().lib
     level_n = (ctypes.c_int * len(tables.level_n))(*tables.level_n)
     dev = tables.geom.device
+    scratch = torch.empty(n + 2, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, name)(
             tables.geom.data_ptr(), tables.node.data_ptr(), tables.n,
             len(tables.level_n), level_n, tables.block, tables.fanout, n,
-            *args, stream)
+            *args, scratch.data_ptr(), scratch.data_ptr() + 4 * n, stream)
     if err:
         msg = ctypes.string_at(lib.tpuray_error_string(err)).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")

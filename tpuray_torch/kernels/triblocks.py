@@ -49,7 +49,7 @@ from . import primitives as pr
 TRI_MAX_TRIANGLES = 524_288
 TRI_CODE = 126          # hit code of a triangle node in the records
 TRI_BLOCK = 16          # triangles per leaf block
-TRI_FANOUT = 8          # children of a node above the blocks
+TRI_FANOUT = 8          # children of a node above the blocks (the walk takes 8)
 TRI_MAX_LEVELS = 8      # levels of the AABB tree the kernels take
 # the most triangles a tree of TRI_MAX_LEVELS levels holds: 16 * 8^7
 TRI_QUERY_MAX_TRIANGLES = TRI_BLOCK * TRI_FANOUT ** (TRI_MAX_LEVELS - 1)
@@ -194,12 +194,13 @@ class BruteForce:
     def __init__(self, tris: TriTables):
         self.tris = tris
 
-    def closest(self, o, d, lt=None, bt=None):
+    def closest(self, o, d, lt=None, bt=None, pixels=None):
         """Closest triangle hit of the rays (o, d) over every triangle
         (``trace.py:433-488``): (t [N] f32, inf where none; wid [N] i64, -1
         where none, the lowest id among equal t; lblock [N] bool, an opaque
         triangle at t <= lt, or None without ``lt``).  ``bt``, the closest
-        analytic hit, bounds only a search with culls."""
+        analytic hit, bounds only a search with culls; ``pixels``, the rays'
+        pixels, only a search that counts by warp."""
         tris, n = self.tris, o.shape[0]
         best = torch.full((n,), float("inf"), dtype=torch.float32,
                           device=o.device)
@@ -221,7 +222,7 @@ class BruteForce:
                            & ~tris.transparent[None, sl]).any(1)
         return best, wid, lblock
 
-    def blocked(self, p, q, tmax, inclusive: bool = False):
+    def blocked(self, p, q, tmax, inclusive: bool = False, pixels=None):
         """Rays from p along q against every triangle (``trace.py:305-386``):
         (blocked [N] bool, an opaque triangle at t < tmax; crossings [N]
         i64, transparent triangles at t < tmax), with t <= tmax where
