@@ -8,7 +8,8 @@ Phases, one line each; any failure raises and the exit code is nonzero:
 2. the CUDA kernels built with nvcc from ``tpuray_torch/kernels/csrc``
    (the megakernel in its base and record instantiations);
 3. the base kernel (K1) against its plain PyTorch version on the card, at
-   two test shapes and at the raypng shape (800x600, depth 15);
+   two test shapes (200x50 has lanes outside the image), at the raypng
+   shape (800x600, depth 15) and on its rows 368-399, its deepest pixels;
 4. the raypng path as a user runs it: ``tpuray_torch.apps.raypng`` at
    800x600 depth 15, which must go through K1; with the reference tree
    mounted, on render.map and its assets against the golden image;
@@ -39,7 +40,8 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     7,424; the walk's work as the kernel walks it (:class:`WalkCount`,
     and the id-order walk it replaced), on the 4K frame on a slab of rows;
 14. bilinear filtering (K2, the ``BILINEAR`` instantiations) against its
-    plain version at 256x64 d3 and 800x600 d15, ``render()`` with
+    plain version at 256x64 d3, 200x50 d6, 800x600 d15 and on its rows
+    368-399, ``render()`` with
     ``filter='bilinear'`` through it, K2 and K1 times at 800x600 d15 and
     1920x1080 d4, and the ptxas figures of every instantiation;
 15. bilinear records (K5 with 4 texel picks per fetch) against the plain
@@ -56,7 +58,12 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     589,824-triangle scene above the megakernel's cap through
     ``engine='auto'``, which must go to the tracer and K6;
 18. invrender ``--engine tracer``: 128x96 d3, 10 steps on the canonical
-    scene, then 5 steps on the 7,424-triangle archive through K6.
+    scene, then 5 steps on the 7,424-triangle archive through K6;
+19. the deepest pixels of 800x600 d15: K1's time on the whole frame, on
+    its rows 368-399 alone and at depth 4, and the DFS work per pixel and
+    per warp (:class:`NodeCount`) at 800x600 d15 and 1920x1080 d4; the
+    bounds of K1 and K2 at 1920x1080 d4 and K5's time and bound at 800x600
+    d15, also at the fp32 rate without FMA.
 
 It prints a JSON line of per-kernel results, then, last, the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it fails and
@@ -111,8 +118,11 @@ GOLDEN_CAMERA = ((0.8, 2.5, -8.0), (0.2, 0.0, 1.0), 90.0, 1.0)
 ASSET_SEED = 0
 INVRENDER_STEPS = 20
 MESH_INVRENDER_STEPS = 10
-# published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
+# published H100 SXM peaks (NVIDIA data sheet, dense, 700 W); the fp32
+# rate counts an FMA as two operations, and the kernels are built without
+# FMA (--fmad=false), so one operation an instruction is half of it
 PEAK_FP32_FLOPS = 67e12
+PEAK_FP32_OPS_NO_FMA = PEAK_FP32_FLOPS / 2
 PEAK_BYTES = 3.35e12
 TRI_CODE = 126
 # fp32 operations of one tri_t test and one box_hit test in
@@ -128,6 +138,9 @@ MESH_K4 = (6, (256, 160))
 # whole image: through the meshes (rows 217-274 of 384 hold triangle hits)
 K4_SLAB = (240, 16)
 SLAB_4K = (1528, 16)
+# (row0, rows) of the 800x600 d15 frame that hold its deepest pixels (the
+# glass spheres: 583 pixels with 40 or more nodes lie in rows 318-394)
+DEEP_SLAB = (368, 32)
 # fp32 operations a bilinear fetch adds to a nearest one: the floors and
 # fractions, 4 weights, 4 weighted texels and the wraps or clamps
 BILINEAR_FETCH_FLOPS = 30
@@ -720,6 +733,135 @@ def agreement(got, want):
             float(diff.mean()), float(diff.max()))
 
 
+class NodeCount:
+    """The megakernel's DFS work per pixel and per warp, read from records
+    (K5's, or its plain version's, at the same inputs; at most ``Krec``
+    nodes a pixel are recorded, ``max_nodes`` is the true maximum).
+
+    Per pixel: ``nodes`` (every recorded node) and ``solid`` (solid and
+    triangle hits, the nodes that shade).  Per warp of the kernel's lane
+    layout (16x16 blocks, a warp is 2 rows of 16 columns; lanes outside
+    the image count 0, warps with no lane in it are left out): ``trips``,
+    the most nodes of one of its lanes (a warp runs its DFS loop that
+    often), and ``solid_trips``, the most solid nodes of one lane.  ``efficiency`` is the SIMT efficiency of the
+    one-thread-a-pixel shading: solid nodes over 32 lanes times the warps'
+    ``solid_trips``."""
+
+    def __init__(self, records, layout, width, height):
+        rec = records["rec"]
+        code, written = rec & 0xFF, rec >= 0
+        solid = (code < layout.n_spheres + layout.n_planes) \
+            | (code == TRI_CODE)
+        self.width, self.height = width, height
+        self.nodes = written.sum(0).reshape(height, width).cpu()
+        self.solid = (written & solid).sum(0).reshape(height, width).cpu()
+        self.max_nodes = int(records["max_nodes"])
+
+    @staticmethod
+    def per_warp(counts):
+        """[warps] the most of ``counts`` [H, W] over each warp's lanes,
+        for the warps that hold a pixel of the image."""
+        h, w = counts.shape
+        hp, wp = -h % 16, -w % 16
+
+        def lanes(x):
+            x = torch.nn.functional.pad(x, (0, wp, 0, hp), value=-1)
+            x = x.reshape((h + hp) // 16, 8, 2, (w + wp) // 16, 16)
+            return x.permute(0, 3, 1, 2, 4).reshape(-1, 32).amax(1)
+
+        most = lanes(counts)
+        return most[lanes(torch.zeros_like(counts)) == 0]
+
+    def summary(self, deep=40):
+        trips = self.per_warp(self.nodes)
+        solid_trips = self.per_warp(self.solid)
+        n_pix = self.width * self.height
+        rows, cols = torch.nonzero(self.nodes >= deep, as_tuple=True)
+        where = (f"rows {int(rows.min())}-{int(rows.max())}, columns "
+                 f"{int(cols.min())}-{int(cols.max())}" if rows.numel()
+                 else "none")
+        return dict(
+            nodes=int(self.nodes.sum()), solid=int(self.solid.sum()),
+            nodes_per_pixel=round(float(self.nodes.sum()) / n_pix, 3),
+            solid_per_pixel=round(float(self.solid.sum()) / n_pix, 3),
+            efficiency=round(float(self.solid.sum())
+                             / max(32 * int(solid_trips.sum()), 1), 3),
+            warps=trips.numel(), trips_mean=round(float(trips.float().mean()),
+                                                  3),
+            trips_max=int(trips.max()), warps_deep=int((trips >= deep).sum()),
+            pixels_deep=int(rows.numel()), deep_where=where,
+            max_nodes=self.max_nodes)
+
+
+def deep_phase(tt, dev, card, scene, assets, camera):
+    """Phase 19: where K1's 800x600 d15 frame spends its time.  The whole
+    frame, the 32-row slab of the deepest pixels (``DEEP_SLAB``: 50 blocks
+    that run at once) and the whole frame at depth 4, CUDA events, median
+    of 10; a slab that takes most of the frame's time means the deepest
+    pixels set it (the tail), not the work of all pixels.  Then the
+    :class:`NodeCount` figures at 800x600 d15 and 1920x1080 d4, and the
+    bounds (:func:`bound`, and its operations at ``PEAK_FP32_OPS_NO_FMA``)
+    of K1 and K2 at 1920x1080 d4 and of K5 at 800x600 d15, with K5's
+    time."""
+    from tpuray_torch.kernels.megakernel import (render_megakernel,
+                                                 render_megakernel_record)
+    from tpuray_torch.utils.metrics import cuda_time_ms
+
+    basis = tt.perspective_basis(camera, 800, 600, device=dev)
+    cfg = tt.RenderConfig(width=800, height=600, max_depth=15,
+                          shadow_samples=2)
+    runs = {"800x600 d15": (tt.pack_scene(scene, basis), cfg),
+            f"rows {DEEP_SLAB[0]}-{sum(DEEP_SLAB) - 1} d15": (
+                tt.pack_scene(scene, basis, DEEP_SLAB[0]),
+                cfg.replace(height=DEEP_SLAB[1])),
+            "800x600 d4": (tt.pack_scene(scene, basis),
+                           cfg.replace(max_depth=4))}
+    times = {name: cuda_time_ms(lambda: render_megakernel(
+        packed, assets, c))[0] for name, (packed, c) in runs.items()}
+    whole, slab, shallow = times.values()
+    results = ["K1 " + ", ".join(f"{name} {ms:.4f} ms"
+                                 for name, ms in times.items()),
+               f"slab / whole {slab / whole:.3f}, d4 / d15 "
+               f"{shallow / whole:.3f}"]
+    for width, height, depth, slots in ((800, 600, 15, 64),
+                                        (1920, 1080, 4, 0)):
+        c = tt.RenderConfig(width=width, height=height, max_depth=depth,
+                            shadow_samples=2, record_slots=slots)
+        packed = tt.pack_scene(scene, tt.perspective_basis(
+            camera, width, height, device=dev))
+        _, recs = render_megakernel_record(packed, assets, c)
+        counts = NodeCount(recs, packed.layout, width, height).summary()
+        results.append(f"{width}x{height} d{depth} nodes (Krec "
+                       f"{c.resolved_record_slots()}): {counts}")
+        del recs
+        torch.cuda.empty_cache()
+    # bounds of the table's other shapes: K1 and K2 at 1920x1080 d4, K5
+    # (with its time) at 800x600 d15
+    for name, width, height, depth, filt, record in (
+            ("K1", 1920, 1080, 4, "nearest", False),
+            ("K2", 1920, 1080, 4, "bilinear", False),
+            ("K5", 800, 600, 15, "nearest", True)):
+        c = tt.RenderConfig(width=width, height=height, max_depth=depth,
+                            shadow_samples=2, filter=filt)
+        packed = tt.pack_scene(scene, tt.perspective_basis(
+            camera, width, height, device=dev))
+        _, recs = render_megakernel_record(packed, assets, c)
+        ms, by, counts = bound(recs, packed, c, record)
+        text = (f"{name} {width}x{height} d{depth}: bound {ms:.5f} ms "
+                f"({by}; fp32 operations at {PEAK_FP32_OPS_NO_FMA / 1e12} T "
+                f"a second without FMA: "
+                f"{counts['flops'] / PEAK_FP32_OPS_NO_FMA * 1e3:.5f} ms; "
+                f"{counts})")
+        if record:
+            ms = cuda_time_ms(lambda: render_megakernel_record(packed, assets,
+                                                               c))[0]
+            text += f", time {ms:.4f} ms (Krec {c.resolved_record_slots()})"
+        results.append(text)
+        del recs
+        torch.cuda.empty_cache()
+    phase(19, "deep pixels", f"{card}: " + "; ".join(results))
+
+
 def mesh_phases(tt, dev, card, assets, camera, asset_args):
     """Phases 10-13, the triangle path; returns the K3 and K4 entries of
     the kernels line."""
@@ -1019,16 +1161,21 @@ def bilinear_phases(tt, dev, card, scene, assets, camera, lib_log):
         render_megakernel_record_reference, render_megakernel_reference)
     from tpuray_torch.utils.metrics import cuda_time_ms
 
-    def inputs(width, height, depth, samples=2, **kw):
-        cfg = tt.RenderConfig(width=width, height=height, max_depth=depth,
-                              shadow_samples=samples, filter="bilinear", **kw)
+    def inputs(width, height, depth, samples=2, rows=None, row0=0, **kw):
+        cfg = tt.RenderConfig(width=width, height=rows or height,
+                              max_depth=depth, shadow_samples=samples,
+                              filter="bilinear", **kw)
         basis = tt.perspective_basis(camera, width, height, device=dev)
-        return tt.pack_scene(scene, basis), cfg, basis
+        return tt.pack_scene(scene, basis, row0), cfg, basis
 
-    # -- 14. K2 against its plain version, the render() path, times --
+    # -- 14. K2 against its plain version (200x50: lanes outside the image;
+    #    the deep slab), the render() path, times --
     results, k2_err = [], 0.0
-    for width, height, depth in ((256, 64, 3), (800, 600, 15)):
-        packed, cfg, _ = inputs(width, height, depth)
+    for width, height, depth, rows, row0 in (
+            (256, 64, 3, None, 0), (200, 50, 6, None, 0),
+            (800, 600, 15, DEEP_SLAB[1], DEEP_SLAB[0]),
+            (800, 600, 15, None, 0)):
+        packed, cfg, _ = inputs(width, height, depth, rows=rows, row0=row0)
         before = render_megakernel.bilinear_launches
         got = render_megakernel(packed, assets, cfg)
         torch.cuda.synchronize()
@@ -1040,8 +1187,9 @@ def bilinear_phases(tt, dev, card, scene, assets, camera, lib_log):
         agree, mean, err = agreement(got, want)
         k2_err = max(k2_err, err)
         moved = float((got - nearest).abs().max())
-        results.append(f"{width}x{height} d{depth}: {agree:.6f} of pixels "
-                       f"within {AGREE_ABS}, mean|d| {mean:.3g}, max|d| "
+        slab = f" rows {row0}-{row0 + rows - 1}" if rows else ""
+        results.append(f"{width}x{height}{slab} d{depth}: {agree:.6f} of "
+                       f"pixels within {AGREE_ABS}, mean|d| {mean:.3g}, max|d| "
                        f"{err:.3g}; vs nearest max|d| {moved:.3g}")
         if agree < AGREE_FRAC or mean >= MEAN_ABS or moved <= 1e-3 \
                 or not bool(torch.isfinite(got).all()):
@@ -1536,18 +1684,21 @@ def main():
         assets = tt.assets_from_arrays(tex, sky, dev)
     camera = tt.Camera(*GOLDEN_CAMERA)
 
-    def inputs(width, height, depth, samples=2, **kw):
-        cfg = tt.RenderConfig(width=width, height=height, max_depth=depth,
-                              shadow_samples=samples, **kw)
+    def inputs(width, height, depth, samples=2, rows=None, row0=0, **kw):
+        cfg = tt.RenderConfig(width=width, height=rows or height,
+                              max_depth=depth, shadow_samples=samples, **kw)
         basis = tt.perspective_basis(camera, width, height, device=dev)
-        return tt.pack_scene(scene, basis), cfg
+        return tt.pack_scene(scene, basis, row0), cfg
 
-    # -- 3. kernel against its plain version --
+    # -- 3. kernel against its plain version: 200x50 has lanes outside the
+    #    image, the deep slab the frame's deepest pixels --
     max_err = 0.0
     results = []
-    for width, height, depth in ((256, 64, 3), (200, 50, 6),
-                                 (800, 600, 15)):
-        packed, cfg = inputs(width, height, depth)
+    for width, height, depth, rows, row0 in (
+            (256, 64, 3, None, 0), (200, 50, 6, None, 0),
+            (800, 600, 15, DEEP_SLAB[1], DEEP_SLAB[0]),
+            (800, 600, 15, None, 0)):
+        packed, cfg = inputs(width, height, depth, rows=rows, row0=row0)
         before = render_megakernel.launches
         got = render_megakernel(packed, assets, cfg)
         torch.cuda.synchronize()
@@ -1555,15 +1706,16 @@ def main():
             raise RuntimeError("the wrapper did not count its launch")
         want = render_megakernel_reference(packed, assets, cfg)
         torch.cuda.synchronize()
-        if got.shape != (height, width, 3) or torch.isnan(got).any():
+        if got.shape != (cfg.height, width, 3) or torch.isnan(got).any():
             raise RuntimeError(f"kernel output {tuple(got.shape)} has NaN "
                                "or the wrong shape")
         diff = (got - want).abs()
         agree = float((diff.amax(-1) < AGREE_ABS).float().mean())
         mean = float(diff.mean())
         max_err = max(max_err, float(diff.max()))
-        results.append(f"{width}x{height} d{depth}: {agree:.6f} of pixels "
-                       f"within {AGREE_ABS}, mean|d| {mean:.3g}, "
+        slab = f" rows {row0}-{row0 + rows - 1}" if rows else ""
+        results.append(f"{width}x{height}{slab} d{depth}: {agree:.6f} of "
+                       f"pixels within {AGREE_ABS}, mean|d| {mean:.3g}, "
                        f"max|d| {float(diff.max()):.3g}")
         if agree < AGREE_FRAC or mean >= MEAN_ABS:
             raise RuntimeError("kernel disagrees with the plain version: "
@@ -1860,6 +2012,7 @@ def main():
         query_entries = query_phase(tt, dev, card, mesh_scenes, camera)
         tracer_phases(tt, dev, card, scene, assets, camera, mesh_specs,
                       mesh_scenes, app_inputs, asset_args, query_entries)
+    deep_phase(tt, dev, card, scene, assets, camera)
 
     print(json.dumps({"kernels": [{
         "name": "megakernel",

@@ -6,13 +6,15 @@ The target is a render of the true scene (``render.map`` by default); the
 optimization starts from perturbed material parameters (rgb, ambient,
 diffuse, specular and reflectivity of every sphere and plane) and
 perturbed light positions, and recovers them with Adam on the L2 loss
-between display-space images.  With ``--engine megakernel`` (or
-``auto``) each step renders through :func:`diff.render_megakernel_diff`:
-the record-mode CUDA megakernel forward and the replay's backward.  With
-``--engine tracer`` (the JAX app's ``xla`` engine) each step renders
-through the whole-image tracer, ``loop='scan'``, and autograd
-differentiates it (invrender.py:233-236); on the card its triangle queries
-go through the triangle-query kernel.
+between display-space images.  With ``--engine megakernel`` each step
+renders through :func:`diff.render_megakernel_diff`: the record-mode CUDA
+megakernel forward and the replay's backward.  With ``--engine tracer``
+(the JAX app's ``xla`` engine) each step renders through the whole-image
+tracer, ``loop='scan'``, and autograd differentiates it
+(invrender.py:233-236); on the card its triangle queries go through the
+triangle-query kernel.  ``auto`` takes the megakernel, and the tracer with
+a ``RuntimeWarning`` where the megakernel does not take the scene or the
+depth (``render.resolve_engine``).
 
     python -m tpuray_torch.apps.invrender [--steps 300] [--width 128 --height 96]
         [--depth 3] [--shadow-samples 0] [--scene render.map]
@@ -47,7 +49,7 @@ from ..config import (ENGINES, GOLDEN_CAMERA_FOCAL, GOLDEN_CAMERA_FOV,
                       REFERENCE_DIR, RenderConfig)
 from ..diff import combine, l2_image_loss, partition, render_megakernel_diff
 from ..kernels.megakernel import pack_scene, render_megakernel_record
-from ..render import render_from_basis_tracer
+from ..render import render_from_basis_tracer, resolve_engine
 from ..sceneio import load_scene
 from ..textures import REFERENCE_ASSETS, load_default_assets
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
@@ -259,9 +261,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cuda' runs the CUDA kernels")
     ap.add_argument("--engine", default="auto", choices=ENGINES,
-                    help="'megakernel' (also 'auto'): the record-mode "
-                         "megakernel and the replay; 'tracer': autograd "
-                         "through the whole-image tracer")
+                    help="'megakernel': the record-mode megakernel and the "
+                         "replay; 'tracer': autograd through the "
+                         "whole-image tracer; 'auto': the megakernel, or "
+                         "the tracer (with a warning) above its triangle "
+                         "or depth cap")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
@@ -269,16 +273,19 @@ def main(argv=None) -> dict:
         raise RuntimeError(f"--device {args.device}: no CUDA device is "
                            "available (pass --device cpu for the plain "
                            "PyTorch version)")
-    tracer = args.engine == "tracer"
     cfg = RenderConfig(width=args.width, height=args.height,
                        max_depth=args.depth, chunk_size=0, loop="scan",
                        shadow_samples=args.shadow_samples,
-                       engine="tracer" if tracer else "megakernel")
+                       engine=args.engine)
     assets = load_default_assets(args.asset_dir, device=device)
     cam = Camera(GOLDEN_CAMERA_ORIGIN, GOLDEN_CAMERA_LOOKDIR,
                  GOLDEN_CAMERA_FOV, GOLDEN_CAMERA_FOCAL)
     basis = perspective_basis(cam, cfg.width, cfg.height, device=device)
     truth = load_scene(args.scene).to_scene(device)
+    # 'auto': the megakernel, or the tracer where the megakernel does not
+    # take the scene or the depth (render.resolve_engine warns)
+    cfg = cfg.replace(engine=resolve_engine(truth, cfg))
+    tracer = cfg.engine == "tracer"
     truth_params, static = partition(truth)
     mask = optimize_mask(truth_params)
 

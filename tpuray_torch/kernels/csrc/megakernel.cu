@@ -1,5 +1,6 @@
 // Whitted megakernel for NVIDIA Hopper (sm_90a): one thread renders one
-// pixel, start to finish.
+// pixel, start to finish; in K1 and K2 the threads of a warp shade their
+// solid hits together.
 //
 // Replaces: tpuray/kernels/pallas_trace.py, _make_kernel.kernel (:659),
 // launched by _pallas_forward (:2314) on 16x128 pixel tiles, plus the XLA
@@ -31,19 +32,42 @@
 // scene word at the same time (a broadcast from the read-only cache); the
 // only per-pixel traffic is 12 bytes of output and a few texel reads.  The
 // work is scalar fp32 arithmetic, sqrt/rsqrt/sin/cos/pow and branches:
-// per DFS node 3 light + 4 sphere + 2 plane tests, then per light and
-// shadow sample 6 occluder tests.  The limit is issue rate and divergence:
-// pixels of one warp that take different paths through the reflect /
-// refract tree serialise, and a warp runs as long as its deepest pixel.
-// For K1 ptxas gives 79 registers and an 800-byte stack frame (the ray
-// stack, in local memory) with no spills.  A bilinear fetch reads 4 texels
-// instead of 1 and adds ~30 operations; it changes neither bound.  The
-// record instantiations add a
+// per DFS node 3 light + 4 sphere + 2 plane tests, then at a solid hit per
+// light and shadow sample a point on the light (4 precise sin/cos) and 6
+// occluder tests.  A warp runs as long as its deepest pixel, and at
+// 800x600 depth 15 that pixel sets the frame: the 32 rows that hold the
+// glass spheres' pixels of 40 to 116 nodes took 86-89% of K1's frame time
+// on their own, two thirds of it in the shadow feelers (PERF.md).  With one
+// thread shading its node alone, each node is a serial chain of all nl x
+// ss feelers, and the deepest pixel runs 116 nodes in a row while most of
+// its warp's lanes, and most of the card, sit idle.
+//
+// K1 and K2 (COOP below) therefore shade a warp's solid hits together
+// (warp_shade): each lane still finds its own node's hit, ambient or texel
+// term, Phong sums and continuation, but the nl x ss shadow feelers of all
+// the warp's solid hits are shared out over its 32 lanes, one feeler a
+// lane a round.  A lane whose pixel is done, or lies outside the image,
+// stays in the DFS loop as a helper until the warp's last pixel is done.
+// A deep node's chain shrinks to its hit tests, one round of feelers and
+// the Phong sums (the deep rows' feeler time fell 2.3x); the draws, the
+// sums and their order are the serial loop's, so K1 and K2 still equal
+// their plain version.  Where most lanes have a solid hit the rounds do
+// the serial loop's work plus their bookkeeping and the warp-wide
+// synchronisation: 1920x1080 depth 4 runs ~5% slower than with the serial
+// shading.  Shared memory: a 1.4 KB WarpTasks slice a warp (11 KB a
+// block), kept small because it is taken from L1, behind which the stack
+// frame lives.  K5 and the triangle instantiations keep the serial
+// shading, a thread a pixel, whose limit is still the issue rate and
+// divergence of each thread's DFS.
+//
+// For K1 ptxas gives ~80 registers and an ~800-byte stack frame (the ray
+// stack, in local memory; figures of every instantiation in PERF.md).  A
+// bilinear fetch reads 4 texels instead of 1 and adds ~30 operations; it
+// changes neither bound.  The record instantiations add a
 // parent code per stack level, and per node one i32 record, one i32 winner
 // id, one i32 texel pick and nl f32 shadow ratios, stored slot-major
-// ([slot, pixel]) so that the threads of a warp write adjacent words (K5:
-// 80 registers, 864 bytes, no spills); under BILINEAR they write 4 picks per
-// node ([slot, tap, pixel]).
+// ([slot, pixel]) so that the threads of a warp write adjacent words;
+// under BILINEAR they write 4 picks per node ([slot, tap, pixel]).
 //
 // Triangles (K3/K4 as one path): the TPU kernel ran Moller-Trumbore as
 // bilinear forms on the MXU at bf16x3 and streamed 256-triangle blocks
@@ -287,6 +311,213 @@ __device__ __forceinline__ void write_record(const Records& R, int slot, size_t 
   for (int t = 0; t < NP; ++t) R.pick[((size_t)slot * NP + t) * n_pix + pix] = pick[t];
 }
 
+// One shadow sample toward light (lo, lrad) from ph (raytracing.cl:95-118):
+// draws two numbers from rng and returns the sample's share of the light,
+// 0 if an opaque solid blocks it (or the light is `dead`), else through^k
+// for the k transparent spheres it crosses (testShadowPath,
+// primitives.cl:396-442).
+template <bool TRIS>
+__device__ __forceinline__ float shadow_sample(uint32_t& rng, V3 lo, float lrad, V3 ph,
+                                               bool dead, const float* SPH, int ns,
+                                               const float* PL, int npl, float through,
+                                               const Tris& T) {
+  float theta = TWO_PI * xorshift32(rng);
+  float phi = PI_F * xorshift32(rng);
+  float sphi = sinf(phi);
+  V3 spt = v3(lo.x + lrad * sphi * cosf(theta),
+              lo.y + lrad * sphi * sinf(theta),
+              lo.z + lrad * cosf(phi));
+  V3 dd = sub(spt, ph);
+  V3 q = normalize(dd);
+  float tmax = sqrtf(dot(dd, dd));
+  bool blocked = dead;
+  float opac = 1.0f;
+  for (int j = 0; j < ns; ++j) {
+    const float* S = SPH + SPHERE_STRIDE * j;
+    float t;
+    bool rel = sphere_t(load3(S), __ldg(S + 3), ph, q, t) && t < tmax;
+    if (__ldg(S + 4 + M_TRANSPARENT) > 0.5f) {
+      if (rel) opac *= through;
+    } else if (rel) {
+      blocked = true;
+    }
+  }
+  for (int j = 0; j < npl; ++j) {
+    const float* P = PL + PLANE_STRIDE * j;
+    float t;
+    if (plane_t(load3(P), load3(P + 3), ph, q, t) && t < tmax) blocked = true;
+  }
+  if constexpr (TRIS) {
+    if (!blocked) {
+      int crossed = 0;
+      blocked = tri_feeler<1, false>(T, ph, q, tmax, crossed, Lanes<1>());
+      if (crossed) opac *= powf(TRI_THROUGH, (float)crossed);
+    }
+  }
+  return blocked ? 0.0f : opac;
+}
+
+// A solid hit's view of the light centred at lo: the vector to the centre,
+// the unit directions to it and of the half vector, and whether the light
+// is dead (faces away, pallas_trace.py:1986-2015): its samples are still
+// drawn but count 0.  Record mode gates on geometry only: a light dead only because
+// diffuse or specular is 0 still has a gradient with respect to them, so
+// its recorded ratio must be the real one.
+struct LightView {
+  V3 cd, sd, hv;
+  bool dead;
+};
+
+template <bool RECORD>
+__device__ __forceinline__ LightView light_view(V3 lo, V3 ph, V3 n, V3 vdir, float diffuse,
+                                                float specular, float shininess) {
+  LightView g;
+  g.cd = sub(lo, ph);
+  g.sd = normalize(g.cd);
+  g.hv = normalize(add(vdir, g.sd));
+  const bool geo_diff_dead = dot(n, g.sd) <= 0.0f;
+  const bool geo_spec_dead = dot(n, g.hv) <= 0.0f && shininess > 0.0f;
+  g.dead = RECORD ? (geo_diff_dead && geo_spec_dead)
+                  : ((geo_diff_dead || diffuse <= 0.0f) &&
+                     (specular <= 0.0f || geo_spec_dead));
+  return g;
+}
+
+// acc plus light L's Phong term at soft-shadow ratio ssr (no distance
+// falloff beyond 1/d^2 of the centre, raytracing.cl:119-134)
+__device__ __forceinline__ V3 phong(V3 acc, const float* L, const LightView& g, V3 n,
+                                    float ssr, float f, float diffuse, float specular,
+                                    float shininess) {
+  float dist = sqrtf(dot(g.cd, g.cd));
+  dist = dist > 0.0f ? dist : 1.0f;
+  float fall = __ldg(L + 4) * INV_PI / (dist * dist) * ssr;
+  float ndh = max_nan(dot(n, g.hv), 0.0f);
+  float spec = powf(max_nan(ndh, 1e-30f), shininess) * specular * f;
+  float ndl = max_nan(dot(n, g.sd), 0.0f);
+  float diff = ndl * diffuse * f;
+  float w = (spec + diff) * fall;
+  return v3(acc.x + w * __ldg(L + 5), acc.y + w * __ldg(L + 6), acc.z + w * __ldg(L + 7));
+}
+
+// ---- warp-cooperative shading (K1, K2) ----
+#define FULL_MASK 0xffffffffu
+#define WARPS_PER_BLOCK (BLOCK_X * BLOCK_Y / 32)
+#define SLOTS 8  // feelers of one task per chunk
+
+// One warp's slice of shared memory: the solid hits it shades this trip
+// ("tasks", numbered by their owners' lane order) and, per chunk, SLOTS
+// feelers of each task: a slot holds the feeler's rng state, then its
+// result.  [slot][task], so that the 32 lanes of a round and the owners
+// touch 32 consecutive words.  1.4 KB a warp, 11 KB a block.
+struct WarpTasks {
+  float x[32], y[32], z[32];  // the task's eps-offset hit point ph
+  uint32_t slot[SLOTS][32];   // rng state in, then the result (float bits)
+};
+
+template <bool COOP>
+__device__ __forceinline__ WarpTasks* warp_tasks() {
+  if constexpr (COOP) {
+    __shared__ WarpTasks tasks[WARPS_PER_BLOCK];
+    return tasks + (threadIdx.y * BLOCK_X + threadIdx.x) / 32;
+  } else {
+    return nullptr;
+  }
+}
+
+// q / d for 0 <= q < 2^20 and 1 <= d, with inv = 1.0f / d: (q + 1/2) / d
+// lies at least 1 / (2d) from an integer, far beyond float rounding
+__device__ __forceinline__ int small_div(int q, float inv) {
+  return __float2int_rz(((float)q + 0.5f) * inv);
+}
+
+// The Phong sum of every light at one solid hit, its shadow feelers shot by
+// the whole warp.  All 32 lanes call it together; `shade` marks the lanes
+// that own a solid hit (ph, n, vdir, material M, weight f, rng at the
+// node's start).  Feeler j = i * ss + s of a task is sample s of light i;
+// it draws with the rng state after 2j steps from the node's start, as the
+// serial loop does.  In chunks of SLOTS feelers per task: the owners write
+// the rng states of their chunk's feelers (moving their own rng on 2 steps
+// a feeler); the K * jc feelers of the chunk are shared out over the 32
+// lanes, one a lane a round, each result written over its rng state; then
+// each owner adds its results in j order and finishes each light whose ss
+// samples are in, as the serial loop does.  Every owner walks the same j,
+// so the Phong terms run once for all of them.
+__device__ __forceinline__ V3 warp_shade(WarpTasks& W, bool shade, V3 ph, V3 n, V3 vdir,
+                                         const float* M, float f, uint32_t& rng,
+                                         const float* SPH, int ns, const float* PL,
+                                         int npl, const float* LI, int nl, int ss,
+                                         float through, const Tris& T) {
+  V3 acc = v3(0.0f, 0.0f, 0.0f);
+  const unsigned tasks = __ballot_sync(FULL_MASK, shade);
+  if (!tasks) return acc;
+  const unsigned lane = (threadIdx.y * BLOCK_X + threadIdx.x) & 31;
+  const int rank = __popc(tasks & ((1u << lane) - 1u));
+  const int K = __popc(tasks);
+  const float inv_k = 1.0f / (float)K, inv_ss = 1.0f / (float)max(ss, 1);
+  float diffuse = 0.0f, specular = 0.0f, shininess = 0.0f;
+  if (shade) {
+    diffuse = __ldg(M + M_DIFFUSE);
+    specular = __ldg(M + M_SPECULAR);
+    shininess = __ldg(M + M_SHININESS);
+    W.x[rank] = ph.x;
+    W.y[rank] = ph.y;
+    W.z[rank] = ph.z;
+  }
+  const int per = nl * ss;  // feelers of one task
+  int li = 0, s = 0;        // the owner's light and sample
+  float soft = 0.0f;
+  for (int c0 = 0; c0 < per; c0 += SLOTS) {
+    const int jc = min(SLOTS, per - c0);
+    if (shade) {
+      for (int jj = 0; jj < jc; ++jj) {
+        W.slot[jj][rank] = rng;
+        xorshift32(rng);
+        xorshift32(rng);
+      }
+    }
+    const int items = K * jc;
+    for (int base = 0; base < items; base += 32) {
+      __syncwarp();
+      const int k = base + (int)lane;
+      if (k < items) {
+        const int jj = small_div(k, inv_k), t = k - jj * K;
+        const int i = small_div(c0 + jj, inv_ss);
+        uint32_t x = W.slot[jj][t];
+        const float* L = LI + LIGHT_STRIDE * i;
+        const float r = shadow_sample<false>(x, load3(L), __ldg(L + 3),
+                                             v3(W.x[t], W.y[t], W.z[t]), false, SPH, ns,
+                                             PL, npl, through, T);
+        W.slot[jj][t] = __float_as_uint(r);
+      }
+    }
+    __syncwarp();
+    if (shade) {
+      for (int jj = 0; jj < jc; ++jj) {
+        soft += __uint_as_float(W.slot[jj][rank]);
+        if (++s == ss) {  // light li's samples are in
+          const float* L = LI + LIGHT_STRIDE * li;
+          const LightView g = light_view<false>(load3(L), ph, n, vdir, diffuse, specular,
+                                                shininess);
+          acc = phong(acc, L, g, n, (g.dead ? 0.0f : soft) / (float)ss, f, diffuse,
+                      specular, shininess);
+          soft = 0.0f;
+          s = 0;
+          ++li;
+        }
+      }
+    }
+  }
+  if (shade && ss == 0) {  // no samples: every light at ratio 0 + 1
+    for (int i = 0; i < nl; ++i) {
+      const float* L = LI + LIGHT_STRIDE * i;
+      const LightView g = light_view<false>(load3(L), ph, n, vdir, diffuse, specular,
+                                            shininess);
+      acc = phong(acc, L, g, n, 0.0f + 1.0f, f, diffuse, specular, shininess);
+    }
+  }
+  return acc;
+}
+
 template <bool RECORD, bool TRIS, bool BILINEAR>
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
@@ -295,9 +526,17 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
            int width, int height, int max_depth, int shadow_samples,
            float eps, float through, float default_n,
            float* __restrict__ out, const Records R) {
+  // K1 and K2 shade their warp's solid hits together (warp_shade); K5 and
+  // the triangle instantiations shade each pixel's hit in its own thread
+  constexpr bool COOP = !RECORD && !TRIS;
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
-  if (col >= width || row >= height) return;
+  const bool in_image = col < width && row < height;
+  if (!COOP && !in_image) return;
+  // COOP: a lane whose pixel is done, or outside the image, stays in the
+  // loop as a helper until its warp is done
+  bool live = in_image;
+  WarpTasks* W = warp_tasks<COOP>();
   const size_t n_pix = (size_t)width * height;
   const size_t pix = (size_t)row * width + col;
   constexpr int NP = BILINEAR ? 4 : 1;  // texel picks per node
@@ -331,9 +570,74 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
   int pcode = 0, nodes = 0;
 
   for (;;) {
+    if constexpr (COOP) {
+      if (!__any_sync(FULL_MASK, live)) break;
+    }
     V3 cx2 = c;
     bool pop = true;
-    if (dep < max_depth) {
+    // a solid hit (COOP: to shade with the warp), then continue from: its
+    // eps-offset point, its normal, the direction to the eye, its material
+    bool shade = false;
+    V3 ph, n, vdir;
+    const float* M = nullptr;
+    // --- the shaded hit's reflect / refract continuation
+    //     (raytracing.cl:138-179); pc_*: the children's parent codes ---
+    auto next_ray = [&](int pc_refl, int pc_refr) {
+      float n2 = n1 == default_n ? __ldg(M + M_N) : default_n;
+      float r0 = (n1 - n2) / (n1 + n2);
+      r0 = r0 * r0;
+      float cos_i = -dot(n, d);
+      float nr = n1 / n2;
+      float sin_t2 = nr * nr * (1.0f - cos_i * cos_i);
+      float cos_tr = sqrtf(max_nan(1.0f - sin_t2, 0.0f));
+      bool use_tr = n1 > n2;
+      float xs = 1.0f - (use_tr ? cos_tr : cos_i);
+      float fr = r0 + (1.0f - r0) * xs * xs * xs * xs * xs;
+      if (use_tr && sin_t2 > 1.0f) fr = 1.0f;
+      float refl = __ldg(M + M_REFLECTIVITY);
+      float ra = __ldg(M + M_DIELECTRIC) > 0.5f ? refl + (1.0f - refl) * fr : refl;
+      float f_cont = f * ra;
+      V3 rd = add(d, scale(n, 2.0f * cos_i));
+      bool pushed = false;
+      if (__ldg(M + M_TRANSPARENT) > 0.5f && sp < max_depth && ra < 1.0f) {
+        bool entering = n1 < n2;
+        V3 rn = entering ? n : v3(-n.x, -n.y, -n.z);
+        float cos_i2 = -dot(rn, d);
+        float sin2 = nr * nr * (1.0f - cos_i2 * cos_i2);
+        if (!(sin2 > 1.0f)) {
+          // push: the reflected ray waits, the refracted one goes on
+          float cos_t = sqrtf(max_nan(1.0f - sin2, 0.0f));
+          float k = nr * cos_i2 - cos_t;
+          float* e = stk[sp - 1];
+          e[0] = ph.x; e[1] = ph.y; e[2] = ph.z;
+          e[3] = rd.x; e[4] = rd.y; e[5] = rd.z;
+          e[6] = cx2.x; e[7] = cx2.y; e[8] = cx2.z;
+          e[9] = f_cont; e[10] = n1;
+          stk_dep[sp - 1] = dep + 1;
+          o = entering ? sub(ph, scale(n, 2.0f * eps)) : ph;
+          d = v3(nr * d.x + k * rn.x, nr * d.y + k * rn.y, nr * d.z + k * rn.z);
+          c = v3(0.0f, 0.0f, 0.0f);
+          f = f * (1.0f - ra);
+          n1 = n2;
+          dep += 1;
+          sp += 1;
+          pushed = true;
+          if constexpr (RECORD) {  // the stacked ray is the reflected child
+            stk_pc[sp - 2] = pc_refl;
+            pcode = pc_refr;
+          }
+        }
+      }
+      if (!pushed) {  // continue along the reflected ray
+        o = ph;
+        d = rd;
+        c = cx2;
+        f = f_cont;
+        dep += 1;
+        if constexpr (RECORD) pcode = pc_refl;
+      }
+    };
+    if (live && dep < max_depth) {
       // a node: one record in slot `slot` if it fits; a node that does not
       // fit gives its children parent code 0, so the replay drops them
       const int slot = nodes++;
@@ -429,9 +733,8 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
         }
       } else {
         pop = false;
+        shade = true;
         V3 hp = add(o, scale(d, bt));
-        V3 n;
-        const float* M;
         const bool is_tri = TRIS && bwin == TRI_CODE;
         const bool is_plane = !is_tri && bwin >= ns;
         if (is_tri) {
@@ -493,156 +796,64 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
           cx2 = v3(c.x + amb * __ldg(M), c.y + amb * __ldg(M + 1),
                    c.z + amb * __ldg(M + 2));
         }
-        V3 ph = add(hp, scale(n, eps));  // eps-offset hit (primitives.cl:350)
+        ph = add(hp, scale(n, eps));  // eps-offset hit (primitives.cl:350)
+        vdir = normalize(sub(o, ph));
         if (rec_on) write_record(R, slot, pix, n_pix, bwin, pcode, wid, pick);
-
-        // --- per-light soft-shadow Phong (raytracing.cl:87-136) ---
-        const float diffuse = __ldg(M + M_DIFFUSE);
-        const float specular = __ldg(M + M_SPECULAR);
-        const float shininess = __ldg(M + M_SHININESS);
-        V3 vdir = normalize(sub(o, ph));
-        V3 acc = v3(0.0f, 0.0f, 0.0f);
-        for (int i = 0; i < nl; ++i) {
-          const float* L = LI + LIGHT_STRIDE * i;
-          V3 lo = load3(L);
-          float lrad = __ldg(L + 3);
-          V3 cd = sub(lo, ph);
-          V3 sd = normalize(cd);
-          V3 hv = normalize(add(vdir, sd));
-          // backface gate (pallas_trace.py:1986-2015): samples still drawn.
-          // Record mode gates on geometry only: a light dead only because
-          // diffuse or specular is 0 still has a gradient with respect to
-          // them, so its recorded ratio must be the real one.
-          const bool geo_diff_dead = dot(n, sd) <= 0.0f;
-          const bool geo_spec_dead = dot(n, hv) <= 0.0f && shininess > 0.0f;
-          const bool dead = RECORD ? (geo_diff_dead && geo_spec_dead)
-                                   : ((geo_diff_dead || diffuse <= 0.0f) &&
-                                      (specular <= 0.0f || geo_spec_dead));
-          float soft = 0.0f;
-          for (int s = 0; s < shadow_samples; ++s) {
-            float theta = TWO_PI * xorshift32(rng);
-            float phi = PI_F * xorshift32(rng);
-            float sphi = sinf(phi);
-            V3 spt = v3(lo.x + lrad * sphi * cosf(theta),
-                        lo.y + lrad * sphi * sinf(theta),
-                        lo.z + lrad * cosf(phi));
-            V3 dd = sub(spt, ph);
-            V3 q = normalize(dd);
-            float tmax = sqrtf(dot(dd, dd));
-            // testShadowPath (primitives.cl:396-442)
-            bool blocked = dead;
-            float opac = 1.0f;
-            for (int j = 0; j < ns; ++j) {
-              const float* S = SPH + SPHERE_STRIDE * j;
-              float t;
-              bool rel = sphere_t(load3(S), __ldg(S + 3), ph, q, t) && t < tmax;
-              if (__ldg(S + 4 + M_TRANSPARENT) > 0.5f) {
-                if (rel) opac *= through;
-              } else if (rel) {
-                blocked = true;
-              }
-            }
-            for (int j = 0; j < npl; ++j) {
-              const float* P = PL + PLANE_STRIDE * j;
-              float t;
-              if (plane_t(load3(P), load3(P + 3), ph, q, t) && t < tmax) blocked = true;
-            }
-            if constexpr (TRIS) {
-              if (!blocked) {
-                int crossed = 0;
-                blocked = tri_feeler<1, false>(T, ph, q, tmax, crossed, Lanes<1>());
-                if (crossed) opac *= powf(TRI_THROUGH, (float)crossed);
-              }
-            }
-            soft += blocked ? 0.0f : opac;
+        if constexpr (COOP) {
+          shade = true;  // shaded with the warp below
+        } else {
+          // --- per-light soft-shadow Phong (raytracing.cl:87-136) ---
+          const float diffuse = __ldg(M + M_DIFFUSE);
+          const float specular = __ldg(M + M_SPECULAR);
+          const float shininess = __ldg(M + M_SHININESS);
+          V3 acc = v3(0.0f, 0.0f, 0.0f);
+          for (int i = 0; i < nl; ++i) {
+            const float* L = LI + LIGHT_STRIDE * i;
+            const V3 lo = load3(L);
+            const float lrad = __ldg(L + 3);
+            const LightView g = light_view<RECORD>(lo, ph, n, vdir, diffuse, specular,
+                                                   shininess);
+            float soft = 0.0f;
+            for (int s = 0; s < shadow_samples; ++s)
+              soft += shadow_sample<TRIS>(rng, lo, lrad, ph, g.dead, SPH, ns, PL, npl,
+                                          through, T);
+            float ssr = shadow_samples ? soft / (float)shadow_samples : soft + 1.0f;
+            if (rec_on) R.ssr[((size_t)slot * nl + i) * n_pix + pix] = ssr;
+            acc = phong(acc, L, g, n, ssr, f, diffuse, specular, shininess);
           }
-          float ssr = shadow_samples ? soft / (float)shadow_samples : soft + 1.0f;
-          if (rec_on) R.ssr[((size_t)slot * nl + i) * n_pix + pix] = ssr;
-          float dist = sqrtf(dot(cd, cd));
-          dist = dist > 0.0f ? dist : 1.0f;
-          float fall = __ldg(L + 4) * INV_PI / (dist * dist) * ssr;
-          float ndh = max_nan(dot(n, hv), 0.0f);
-          float spec = powf(max_nan(ndh, 1e-30f), shininess) * specular * f;
-          float ndl = max_nan(dot(n, sd), 0.0f);
-          float diff = ndl * diffuse * f;
-          float w = (spec + diff) * fall;
-          acc = v3(acc.x + w * __ldg(L + 5), acc.y + w * __ldg(L + 6),
-                   acc.z + w * __ldg(L + 7));
-        }
-        cx2 = add(cx2, acc);
-
-        // --- reflect / refract continuation (raytracing.cl:138-179) ---
-        float n2 = n1 == default_n ? __ldg(M + M_N) : default_n;
-        float r0 = (n1 - n2) / (n1 + n2);
-        r0 = r0 * r0;
-        float cos_i = -dot(n, d);
-        float nr = n1 / n2;
-        float sin_t2 = nr * nr * (1.0f - cos_i * cos_i);
-        float cos_tr = sqrtf(max_nan(1.0f - sin_t2, 0.0f));
-        bool use_tr = n1 > n2;
-        float xs = 1.0f - (use_tr ? cos_tr : cos_i);
-        float fr = r0 + (1.0f - r0) * xs * xs * xs * xs * xs;
-        if (use_tr && sin_t2 > 1.0f) fr = 1.0f;
-        float refl = __ldg(M + M_REFLECTIVITY);
-        float ra = __ldg(M + M_DIELECTRIC) > 0.5f ? refl + (1.0f - refl) * fr : refl;
-        float f_cont = f * ra;
-        V3 rd = add(d, scale(n, 2.0f * cos_i));
-        bool pushed = false;
-        if (__ldg(M + M_TRANSPARENT) > 0.5f && sp < max_depth && ra < 1.0f) {
-          bool entering = n1 < n2;
-          V3 rn = entering ? n : v3(-n.x, -n.y, -n.z);
-          float cos_i2 = -dot(rn, d);
-          float sin2 = nr * nr * (1.0f - cos_i2 * cos_i2);
-          if (!(sin2 > 1.0f)) {
-            // push: the reflected ray waits, the refracted one goes on
-            float cos_t = sqrtf(max_nan(1.0f - sin2, 0.0f));
-            float k = nr * cos_i2 - cos_t;
-            float* e = stk[sp - 1];
-            e[0] = ph.x; e[1] = ph.y; e[2] = ph.z;
-            e[3] = rd.x; e[4] = rd.y; e[5] = rd.z;
-            e[6] = cx2.x; e[7] = cx2.y; e[8] = cx2.z;
-            e[9] = f_cont; e[10] = n1;
-            stk_dep[sp - 1] = dep + 1;
-            o = entering ? sub(ph, scale(n, 2.0f * eps)) : ph;
-            d = v3(nr * d.x + k * rn.x, nr * d.y + k * rn.y, nr * d.z + k * rn.z);
-            c = v3(0.0f, 0.0f, 0.0f);
-            f = f * (1.0f - ra);
-            n1 = n2;
-            dep += 1;
-            sp += 1;
-            pushed = true;
-            if constexpr (RECORD) {  // the stacked ray is the reflected child
-              stk_pc[sp - 2] = pc_refl;
-              pcode = pc_refr;
-            }
-          }
-        }
-        if (!pushed) {  // continue along the reflected ray
-          o = ph;
-          d = rd;
-          c = cx2;
-          f = f_cont;
-          dep += 1;
-          if constexpr (RECORD) pcode = pc_refl;
+          cx2 = add(cx2, acc);
+          next_ray(pc_refl, pc_refr);
         }
       }
     }
-    if (pop) {
+
+    if constexpr (COOP) {  // the warp's solid hits, shaded together
+      const V3 acc = warp_shade(*W, shade, ph, n, vdir, M, f, rng, SPH, ns, PL, npl, LI,
+                                nl, shadow_samples, through, T);
+      if (shade) {
+        cx2 = add(cx2, acc);
+        next_ray(0, 0);
+      }
+    }
+    if (live && pop) {
       if (sp == 1) {  // the root ray is done
         c = cx2;
-        break;
+        live = false;
+        if constexpr (!COOP) break;
+      } else {
+        const float* e = stk[sp - 2];
+        o = v3(e[0], e[1], e[2]);
+        d = v3(e[3], e[4], e[5]);
+        c = v3(e[6] + cx2.x, e[7] + cx2.y, e[8] + cx2.z);
+        f = e[9];
+        n1 = e[10];
+        dep = stk_dep[sp - 2];
+        if constexpr (RECORD) pcode = stk_pc[sp - 2];
+        sp -= 1;
       }
-      const float* e = stk[sp - 2];
-      o = v3(e[0], e[1], e[2]);
-      d = v3(e[3], e[4], e[5]);
-      c = v3(e[6] + cx2.x, e[7] + cx2.y, e[8] + cx2.z);
-      f = e[9];
-      n1 = e[10];
-      dep = stk_dep[sp - 2];
-      if constexpr (RECORD) pcode = stk_pc[sp - 2];
-      sp -= 1;
     }
   }
+  if (!in_image) return;
   float* px = out + pix * 3;
   px[0] = c.x;
   px[1] = c.y;

@@ -89,7 +89,8 @@ from .triblocks import (ATTR_STRIDE, TRI_CODE, TRI_MAX_LEVELS, TRI_THROUGH,
                         material_rows)
 
 # The kernel's per-thread ray stack has this many levels (csrc/megakernel.cu
-# MAX_DEPTH_CAP); the reference's depth is 15.
+# MAX_DEPTH_CAP); the reference's depth is 15.  engine='auto' renders deeper
+# configurations with the tracer (render.resolve_engine).
 MAX_DEPTH_CAP = 16
 
 # record codes, mirrored by csrc/megakernel.cu

@@ -16,7 +16,8 @@ import torch
 
 from .camera import Camera, PerspectiveBasis, generate_rays, perspective_basis
 from .config import RenderConfig
-from .kernels.megakernel import pack_scene, render_megakernel
+from .kernels.megakernel import (MAX_DEPTH_CAP, pack_scene,
+                                 render_megakernel)
 from .kernels.trace import trace_rays
 from .kernels.triblocks import TRI_MAX_TRIANGLES
 from .scene import Scene
@@ -24,24 +25,34 @@ from .textures import SceneAssets
 
 
 def megakernel_supported(scene: Scene, cfg: RenderConfig) -> bool:
-    """Whether the megakernel takes the scene: it covers every feature
-    (both filters, triangles, records) up to ``TRI_MAX_TRIANGLES``
-    triangles (``pallas_supported``, pallas_trace.py:2749)."""
-    return scene.num_triangles <= TRI_MAX_TRIANGLES
+    """Whether the megakernel takes the scene and config: it covers every
+    feature (both filters, triangles, records) up to ``TRI_MAX_TRIANGLES``
+    triangles (``pallas_supported``, pallas_trace.py:2749) and depths up to
+    its ray stack's ``MAX_DEPTH_CAP`` levels (the JAX kernel sizes its stack
+    by the depth, pallas_trace.py:2421-2426)."""
+    return (scene.num_triangles <= TRI_MAX_TRIANGLES
+            and cfg.max_depth <= MAX_DEPTH_CAP)
 
 
-def _use_megakernel(scene: Scene, cfg: RenderConfig) -> bool:
+def resolve_engine(scene: Scene, cfg: RenderConfig) -> str:
+    """The engine that renders ``scene`` under ``cfg``: ``'megakernel'`` or
+    ``'tracer'``.  ``'auto'`` takes the megakernel where it is supported
+    and the tracer, with a ``RuntimeWarning``, where it is not."""
     if cfg.engine != "auto":
-        return cfg.engine == "megakernel"
+        return cfg.engine
     if megakernel_supported(scene, cfg):
-        return True
+        return "megakernel"
+    if scene.num_triangles > TRI_MAX_TRIANGLES:
+        why = (f"the scene's {scene.num_triangles:,} triangles exceed the "
+               f"megakernel's cap ({TRI_MAX_TRIANGLES:,})")
+    else:
+        why = (f"max_depth={cfg.max_depth} exceeds the megakernel's ray "
+               f"stack (MAX_DEPTH_CAP = {MAX_DEPTH_CAP} levels)")
     # never downgrade silently: the tracer is far slower
-    warnings.warn(
-        f"engine='auto' fell back to the whole-image tracer: the scene's "
-        f"{scene.num_triangles:,} triangles exceed the megakernel's cap "
-        f"({TRI_MAX_TRIANGLES:,}); expect a much slower render",
-        RuntimeWarning, stacklevel=3)
-    return False
+    warnings.warn(f"engine='auto' fell back to the whole-image tracer: "
+                  f"{why}; expect a much slower render", RuntimeWarning,
+                  stacklevel=3)
+    return "tracer"
 
 
 def render_from_basis_tracer(scene: Scene, assets: SceneAssets,
@@ -68,8 +79,8 @@ def render_from_basis(scene: Scene, assets: SceneAssets,
     """Render ``cfg.height`` rows starting at image row ``row0`` with the
     engine ``cfg.engine`` picks: float32 linear rgb [H, W, 3] on the scene's
     device.  ``'auto'`` takes the megakernel, and the tracer (with a
-    ``RuntimeWarning``) above the megakernel's triangle cap."""
-    if _use_megakernel(scene, cfg):
+    ``RuntimeWarning``) above the megakernel's triangle or depth cap."""
+    if resolve_engine(scene, cfg) == "megakernel":
         return render_megakernel(pack_scene(scene, basis, row0), assets, cfg)
     return render_from_basis_tracer(scene, assets, basis, cfg, row0)
 
@@ -83,7 +94,7 @@ def render_from_basis_checked(scene: Scene, assets: SceneAssets,
     it dropped some; the port's kernel fetches texels itself, so nothing
     drops, ``dropped``, ``retries`` and ``event_slots`` are 0, and
     ``max_retries`` is never used."""
-    engine = "megakernel" if _use_megakernel(scene, cfg) else "tracer"
+    engine = resolve_engine(scene, cfg)
     cfg = cfg.replace(engine=engine)
     return (render_from_basis(scene, assets, basis, cfg),
             {"dropped": 0, "retries": 0, "event_slots": 0, "engine": engine})

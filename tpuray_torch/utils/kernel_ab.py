@@ -12,13 +12,15 @@ can alternate: it builds that tree's kernels, then times each case with
 may be two launches), 5 warm-ups, median of 30 calls, host overhead
 excluded.  The cases are K1 and K5 (record mode) on
 ``canonical_scene_spec()`` at 512x384 depth 3 without shadow samples, at
-128x96 depth 3 without, and at 800x600 depth 15 with 2; in a tree that has
-``meshes.py``, the triangle path and its record mode on
-``mesh_benchmark_scene(4)`` (7,424 triangles) at 512x384 depth 3 with 2,
-the triangle path on 163,840 triangles (``(6, torus_res=(256, 160))``) at
-512x384 depth 3 with 2 and on 10,240 (``(4, torus_res=(64, 40))``) at
-3840x2160 depth 6 with 2; in a tree that takes ``filter='bilinear'``, K2 at
-800x600 depth 15 with 2; and in a tree that has ``kernels/query.py``, the
+128x96 depth 3 without, and at 800x600 depth 15 with 2 (K1 also on rows
+368-399 of that frame, which hold its deepest pixels, and at 1920x1080
+depth 4, each with 2 and without); in a tree that has ``meshes.py``, the
+triangle path and its record mode on ``mesh_benchmark_scene(4)`` (7,424
+triangles) at 512x384 depth 3 with 2, the triangle path on 163,840
+triangles (``(6, torus_res=(256, 160))``) at 512x384 depth 3 with 2 and on
+10,240 (``(4, torus_res=(64, 40))``) at 3840x2160 depth 6 with 2; in a tree
+that takes ``filter='bilinear'``, K2 at 800x600 depth 15 and 1920x1080
+depth 4 with 2; and in a tree that has ``kernels/query.py``, the
 triangle-query kernel's closest and blocker queries on the 512x384 primary
 rays over 7,424 and 163,840 triangles (blocker ranges 1.5 or 0.5 times the
 closest hit, 4 on a miss, every 11th ray inactive).  Assets are
@@ -44,10 +46,16 @@ ITERS = 30
 MESH_K3 = (4, (48, 24))      # 7,424 triangles
 MESH_K4 = (6, (256, 160))    # 163,840
 MESH_4K = (4, (64, 40))      # 10,240
+DEEP_SLAB = (368, 32)         # rows 368-399 of 800x600: the deepest pixels
 CASES = [  # name, width, height, depth, shadow samples, record, mesh, filter
     ("K1 512x384 d3 ss0", 512, 384, 3, 0, False, None, "nearest"),
     ("K1 128x96 d3 ss0", 128, 96, 3, 0, False, None, "nearest"),
     ("K1 800x600 d15 ss2", 800, 600, 15, 2, False, None, "nearest"),
+    ("K1 800x600 d15 rows 368-399", 800, 600, 15, 2, False, None, "nearest"),
+    ("K1 800x600 d15 ss0 rows 368-399", 800, 600, 15, 0, False, None,
+     "nearest"),
+    ("K1 1920x1080 d4 ss2", 1920, 1080, 4, 2, False, None, "nearest"),
+    ("K1 1920x1080 d4 ss0", 1920, 1080, 4, 0, False, None, "nearest"),
     ("K5 512x384 d3 ss0", 512, 384, 3, 0, True, None, "nearest"),
     ("K5 128x96 d3 ss0", 128, 96, 3, 0, True, None, "nearest"),
     ("K5 800x600 d15 ss2", 800, 600, 15, 2, True, None, "nearest"),
@@ -59,6 +67,7 @@ CASES = [  # name, width, height, depth, shadow samples, record, mesh, filter
     ("K3 3840x2160 d6 ss2 10240 tris", 3840, 2160, 6, 2, False, MESH_4K,
      "nearest"),
     ("K2 800x600 d15 ss2", 800, 600, 15, 2, False, None, "bilinear"),
+    ("K2 1920x1080 d4 ss2", 1920, 1080, 4, 2, False, None, "bilinear"),
 ]
 QUERY_CASES = [  # name, query, mesh: on the 512x384 primary rays
     ("K6 closest 7424 tris", "closest", MESH_K3),
@@ -143,8 +152,9 @@ def worker(tree: str, only: str = "") -> None:
     for name, width, height, depth, samples, record, mesh, filt in CASES:
         if not name.startswith(prefixes) or (mesh and not has_meshes):
             continue
+        row0, rows = DEEP_SLAB if "rows" in name else (0, height)
         try:
-            cfg = tt.RenderConfig(width=width, height=height,
+            cfg = tt.RenderConfig(width=width, height=rows,
                                   max_depth=depth, shadow_samples=samples,
                                   filter=filt)
         except (NotImplementedError, ValueError):
@@ -152,7 +162,7 @@ def worker(tree: str, only: str = "") -> None:
         scene = (mesh_scene(mesh) if mesh
                  else tt.build_scene(tt.canonical_scene_spec(), dev))
         packed = pack_scene(scene, tt.perspective_basis(
-            camera, width, height, device=dev))
+            camera, width, height, device=dev), row0)
         render = render_megakernel_record if record else render_megakernel
         out[name] = timed(lambda: render(packed, assets, cfg))
         del packed
