@@ -15,8 +15,10 @@ Phases, one line each; any failure raises and the exit code is nonzero:
    mounted, on render.map and its assets against the golden image;
 5. K1 and plain times (CUDA events, 3 warm-ups, median of 10) at the
    raypng shape and at the benchmark's 1920x1080 depth 4;
-6. the record kernel (K5) against its plain version: records, texel picks,
-   shadow ratios and ``max_nodes``, and its image against K1's;
+6. the record kernel (K5) against its plain version: records, winner ids,
+   texel picks, shadow ratios and ``max_nodes``, and its image bit-equal
+   to K1's, at three test shapes, on 203x37 (lanes outside the image) and
+   on rows 368-399 of 800x600 d15 (its deepest pixels);
 7. the replay on the card: it reproduces K5's image, and the gradient
    through ``render_megakernel_diff`` matches the same on the CPU;
 8. the inverse-rendering path as a user runs it:
@@ -59,8 +61,10 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     ``engine='auto'``, which must go to the tracer and K6;
 18. invrender ``--engine tracer``: 128x96 d3, 10 steps on the canonical
     scene, then 5 steps on the 7,424-triangle archive through K6;
-19. the deepest pixels of 800x600 d15: K1's time on the whole frame, on
-    its rows 368-399 alone and at depth 4, and the DFS work per pixel and
+19. the deepest pixels of 800x600 d15: K1's and K5's times on the whole
+    frame and on its rows 368-399 alone (with and without shadow samples),
+    K1's at depth 4, K5 less K1 at 512x384 d3 without samples (the cost of
+    the records), and the DFS work per pixel and
     per warp (:class:`NodeCount`) at 800x600 d15 and 1920x1080 d4; the
     bounds of K1 and K2 at 1920x1080 d4 and K5's time and bound at 800x600
     d15, also at the fp32 rate without FMA.
@@ -794,11 +798,14 @@ class NodeCount:
 
 
 def deep_phase(tt, dev, card, scene, assets, camera):
-    """Phase 19: where K1's 800x600 d15 frame spends its time.  The whole
-    frame, the 32-row slab of the deepest pixels (``DEEP_SLAB``: 50 blocks
-    that run at once) and the whole frame at depth 4, CUDA events, median
-    of 10; a slab that takes most of the frame's time means the deepest
-    pixels set it (the tail), not the work of all pixels.  Then the
+    """Phase 19: where K1's and K5's 800x600 d15 frames spend their time.
+    The whole frame, the 32-row slab of the deepest pixels (``DEEP_SLAB``:
+    50 blocks that run at once) with 2 shadow samples and without, and
+    K1's whole frame at depth 4, CUDA events, median of 10; a slab that
+    takes most of the frame's time means the deepest pixels set it (the
+    tail), not the work of all pixels, and the slab's time with samples
+    less its time without is its feelers' time.  K5 less K1 at 512x384 d3
+    without samples is the cost of the records.  Then the
     :class:`NodeCount` figures at 800x600 d15 and 1920x1080 d4, and the
     bounds (:func:`bound`, and its operations at ``PEAK_FP32_OPS_NO_FMA``)
     of K1 and K2 at 1920x1080 d4 and of K5 at 800x600 d15, with K5's
@@ -810,19 +817,41 @@ def deep_phase(tt, dev, card, scene, assets, camera):
     basis = tt.perspective_basis(camera, 800, 600, device=dev)
     cfg = tt.RenderConfig(width=800, height=600, max_depth=15,
                           shadow_samples=2)
+    slab_rows = f"rows {DEEP_SLAB[0]}-{sum(DEEP_SLAB) - 1}"
+    slab_packed = tt.pack_scene(scene, basis, DEEP_SLAB[0])
+    small = tt.RenderConfig(width=512, height=384, max_depth=3,
+                            shadow_samples=0)
+    small_packed = tt.pack_scene(scene, tt.perspective_basis(
+        camera, 512, 384, device=dev))
     runs = {"800x600 d15": (tt.pack_scene(scene, basis), cfg),
-            f"rows {DEEP_SLAB[0]}-{sum(DEEP_SLAB) - 1} d15": (
-                tt.pack_scene(scene, basis, DEEP_SLAB[0]),
-                cfg.replace(height=DEEP_SLAB[1])),
+            f"{slab_rows} d15": (slab_packed,
+                                 cfg.replace(height=DEEP_SLAB[1])),
+            f"{slab_rows} d15 ss0": (slab_packed,
+                                     cfg.replace(height=DEEP_SLAB[1],
+                                                 shadow_samples=0)),
             "800x600 d4": (tt.pack_scene(scene, basis),
-                           cfg.replace(max_depth=4))}
-    times = {name: cuda_time_ms(lambda: render_megakernel(
-        packed, assets, c))[0] for name, (packed, c) in runs.items()}
-    whole, slab, shallow = times.values()
-    results = ["K1 " + ", ".join(f"{name} {ms:.4f} ms"
-                                 for name, ms in times.items()),
-               f"slab / whole {slab / whole:.3f}, d4 / d15 "
-               f"{shallow / whole:.3f}"]
+                           cfg.replace(max_depth=4)),
+            "512x384 d3 ss0": (small_packed, small)}
+    results = []
+    times = {}
+    for name, render in (("K1", render_megakernel),
+                         ("K5", render_megakernel_record)):
+        times[name] = {
+            run: cuda_time_ms(lambda: render(packed, assets, c))[0]
+            for run, (packed, c) in runs.items()
+            if name == "K1" or run != "800x600 d4"}
+        t = times[name]
+        whole, slab = t["800x600 d15"], t[f"{slab_rows} d15"]
+        results += [f"{name} " + ", ".join(f"{run} {ms:.4f} ms"
+                                           for run, ms in t.items()),
+                    f"{name} slab / whole {slab / whole:.3f}, slab ss2 - ss0 "
+                    f"{slab - t[f'{slab_rows} d15 ss0']:.4f} ms"]
+    k1, k5 = times["K1"], times["K5"]
+    results += [f"K1 d4 / d15 {k1['800x600 d4'] / k1['800x600 d15']:.3f}",
+                f"K5 - K1 at 512x384 d3 ss0 "
+                f"{k5['512x384 d3 ss0'] - k1['512x384 d3 ss0']:.4f} ms "
+                f"(Krec {small.resolved_record_slots()})"]
+    del runs, slab_packed, small_packed
     for width, height, depth, slots in ((800, 600, 15, 64),
                                         (1920, 1080, 4, 0)):
         c = tt.RenderConfig(width=width, height=height, max_depth=depth,
@@ -853,9 +882,8 @@ def deep_phase(tt, dev, card, scene, assets, camera):
                 f"{counts['flops'] / PEAK_FP32_OPS_NO_FMA * 1e3:.5f} ms; "
                 f"{counts})")
         if record:
-            ms = cuda_time_ms(lambda: render_megakernel_record(packed, assets,
-                                                               c))[0]
-            text += f", time {ms:.4f} ms (Krec {c.resolved_record_slots()})"
+            text += (f", time {k5['800x600 d15']:.4f} ms (Krec "
+                     f"{c.resolved_record_slots()})")
         results.append(text)
         del recs
         torch.cuda.empty_cache()
@@ -1229,8 +1257,8 @@ def bilinear_phases(tt, dev, card, scene, assets, camera, lib_log):
     results.append(f"K2 800x600 d15 plain {k2_plain_ms:.1f} ms (one run), "
                    f"bound {k2_bound:.5f} ms ({k2_by}; {k2_counts})")
     results.append("ptxas of the bilinear instantiations: " + " | ".join(
-        f for f in ptxas_figures(lib_log) if f.startswith("megakernel<")
-        and f.split(">")[0].endswith(",1")))
+        f for f in ptxas_figures(lib_log) if f.startswith("megakernel")
+        and f.split(">")[0].endswith(("<1", ",1"))))
     phase(14, "bilinear kernel", f"{card}: " + "; ".join(results))
 
     # -- 15. K5 with bilinear records, the replay, the gradient --
@@ -1778,13 +1806,16 @@ def main():
         k1_bound, k1_by, k1_counts = bound(recs, packed, cfg, False)
         del recs
 
-        # -- 6. K5 against its plain version --
+        # -- 6. K5 against its plain version: 203x37 has lanes outside the
+        #    image, the deep slab the frame's deepest pixels --
         k5_err = 0.0
         results = []
-        for width, height, depth, samples in ((256, 64, 3, 2),
-                                              (200, 50, 6, 2),
-                                              (128, 96, 3, 0)):
-            packed, cfg = inputs(width, height, depth, samples)
+        for width, height, depth, samples, rows, row0 in (
+                (256, 64, 3, 2, None, 0), (200, 50, 6, 2, None, 0),
+                (128, 96, 3, 0, None, 0), (203, 37, 6, 2, None, 0),
+                (800, 600, 15, 2, DEEP_SLAB[1], DEEP_SLAB[0])):
+            packed, cfg = inputs(width, height, depth, samples, rows=rows,
+                                 row0=row0)
             before = render_megakernel_record.launches
             img, rec = render_megakernel_record(packed, assets, cfg)
             torch.cuda.synchronize()
@@ -1795,32 +1826,31 @@ def main():
                                                              cfg)
             base = render_megakernel(packed, assets, cfg)
             torch.cuda.synchronize()
-            n_pix = width * height
+            n_pix = width * cfg.height
             krec = cfg.resolved_record_slots()
-            if img.shape != (height, width, 3) \
+            if img.shape != (cfg.height, width, 3) \
                     or rec["rec"].shape != (krec, n_pix) \
                     or rec["ssr"].shape != (krec, scene.num_lights, n_pix) \
                     or not bool(torch.isfinite(img).all()):
                 raise RuntimeError("record kernel outputs have the wrong "
                                    "shape or are not finite")
             same = {k: float((rec[k] == plain[k]).all(0).float().mean())
-                    for k in ("rec", "pick")}
+                    for k in ("rec", "wid", "pick")}
             ssr_err = float((rec["ssr"] - plain["ssr"]).abs().max())
             d_plain = (img - want).abs()
-            d_base = (img - base).abs()
             k5_err = max(k5_err, float(d_plain.max()))
-            base_agree = float((d_base.amax(-1) < AGREE_ABS).float().mean())
+            base_equal = bool(torch.equal(img, base))
             nodes = (int(rec["max_nodes"]), int(plain["max_nodes"]))
+            slab = f" rows {row0}-{row0 + rows - 1}" if rows else ""
             results.append(
-                f"{width}x{height} d{depth} ss{samples}: records equal on "
-                f"{same['rec']:.6f} and picks on {same['pick']:.6f} of "
+                f"{width}x{height}{slab} d{depth} ss{samples}: records "
+                f"equal on {same['rec']:.6f}, winner ids on "
+                f"{same['wid']:.6f} and picks on {same['pick']:.6f} of "
                 f"pixels, ssr max|d| {ssr_err:.3g}, max_nodes {nodes[0]} "
                 f"(plain {nodes[1]}), image vs plain max|d| "
-                f"{float(d_plain.max()):.3g}, vs K1 {base_agree:.6f} within "
-                f"{AGREE_ABS} (mean {float(d_base.mean()):.3g})")
+                f"{float(d_plain.max()):.3g}, bit-equal to K1's {base_equal}")
             if min(same.values()) < AGREE_FRAC or ssr_err > SSR_ABS \
-                    or nodes[0] != nodes[1] or base_agree < AGREE_FRAC \
-                    or float(d_base.mean()) >= MEAN_ABS \
+                    or nodes[0] != nodes[1] or not base_equal \
                     or float(d_plain.mean()) >= MEAN_ABS:
                 raise RuntimeError("record kernel disagrees: " + results[-1])
         phase(6, "record kernel vs plain", "; ".join(results))

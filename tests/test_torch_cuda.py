@@ -15,7 +15,7 @@ import torch
 import tpuray_torch as tt
 from tpuray_torch.kernels import build
 from tpuray_torch.kernels.megakernel import (
-    MAX_DEPTH_CAP, pack_scene, render_megakernel, render_megakernel_record,
+    MAX_DEPTH_CAP, PC_VALID, pack_scene, render_megakernel, render_megakernel_record,
     render_megakernel_record_reference, render_megakernel_reference)
 from tpuray_torch.kernels.triblocks import TRI_MAX_TRIANGLES
 
@@ -199,27 +199,40 @@ def test_bilinear_kernel_matches_plain_version(cuda):
     assert float((got - nearest).abs().max()) > 1e-3
 
 
+# (width, rows, height, row0, depth, samples, extra lights); without
+# samples no lane stays as a helper
+SHADING_CASES = pytest.mark.parametrize(
+    "case", [(800, 32, 600, 368, 15, 2, 0), (203, 37, 37, 0, 6, 2, 0),
+             (64, 48, 48, 0, 4, 3, 29), (203, 37, 37, 0, 6, 0, 0)],
+    ids=["deep-slab", "ragged", "many-lights", "ragged-ss0"])
+
+
+def shading_inputs(device, filt, case):
+    """(scene, packed scene, assets, cfg) of a shared-shading case."""
+    width, rows, height, row0, depth, samples, extra_lights = case
+    scene = tt.build_scene(crowded_spec(n_lights=extra_lights), device)
+    basis = tt.perspective_basis(tt.Camera(*GOLDEN_CAMERA), width, height,
+                                 device=device)
+    assets = tt.assets_from_arrays(*tt.random_asset_arrays(0, 512, 512),
+                                   device)
+    cfg = tt.RenderConfig(width=width, height=rows, max_depth=depth,
+                          shadow_samples=samples, filter=filt)
+    return scene, pack_scene(scene, basis, row0), assets, cfg
+
+
 @pytest.mark.parametrize("filt", ["nearest", "bilinear"])
-@pytest.mark.parametrize("case", [(800, 32, 600, 368, 15, 2, 0),
-                                  (203, 37, 37, 0, 6, 2, 0),
-                                  (64, 48, 48, 0, 4, 3, 29)],
-                         ids=["deep-slab", "ragged", "many-lights"])
+@SHADING_CASES
 def test_shared_shading_matches_plain_version(cuda, filt, case):
     """K1 and K2 shade a warp's solid hits together, with helper lanes: on
     rows 368-399 of 800x600 d15, the frame's deepest pixels (up to 116
     nodes, most warps shading a few pixels); on a 203x37 image, whose
     blocks at the right and bottom edges hold lanes outside the image; and
-    with 32 lights and 3 samples, 96 feelers a hit, in 12 chunks.  Phase
-    3's bar: >= 99.9% of pixels within 1e-3, mean < 1e-4."""
-    width, rows, height, row0, depth, samples, extra_lights = case
-    scene = tt.build_scene(crowded_spec(n_lights=extra_lights), cuda)
-    basis = tt.perspective_basis(tt.Camera(*GOLDEN_CAMERA), width, height,
-                                 device=cuda)
-    assets = tt.assets_from_arrays(*tt.random_asset_arrays(0, 512, 512),
-                                   cuda)
-    packed = pack_scene(scene, basis, row0)
-    cfg = tt.RenderConfig(width=width, height=rows, max_depth=depth,
-                          shadow_samples=samples, filter=filt)
+    with 32 lights and 3 samples, 96 feelers a hit, in 12 chunks; and the
+    203x37 image without samples, where each lane shades alone and leaves
+    when its pixel is done.  Phase 3's bar: >= 99.9% of pixels within
+    1e-3, mean < 1e-4."""
+    width, rows, _, row0, depth, samples, _ = case
+    scene, packed, assets, cfg = shading_inputs(cuda, filt, case)
     got = render_megakernel(packed, assets, cfg)
     torch.cuda.synchronize()
     want = render_megakernel_reference(packed, assets, cfg)
@@ -229,6 +242,101 @@ def test_shared_shading_matches_plain_version(cuda, filt, case):
     assert bool(torch.isfinite(got).all())
     assert (diff.amax(-1) < 1e-3).float().mean() >= 0.999
     assert float(diff.mean()) < 1e-4
+
+
+RECORD_SENTINEL = {torch.int32: 0x5A5A5A5A, torch.float32: -7777.0}
+GUARD = 4096
+
+
+def filled_empty(monkeypatch):
+    """Make ``torch.empty`` hand out views of buffers filled with a
+    sentinel, each followed by ``GUARD`` more elements of it; returns the
+    list of (buffer, elements handed out) it fills.  An element the kernel
+    never writes keeps the sentinel, and a write past a tensor's end lands
+    in its guard."""
+    made = []
+
+    def empty(shape, *, dtype, device):
+        n = int(np.prod(shape))
+        buf = torch.full((n + GUARD,), RECORD_SENTINEL[dtype], dtype=dtype,
+                         device=device)
+        made.append((buf, n))
+        return buf[:n].view(shape)
+
+    monkeypatch.setattr(torch, "empty", empty)
+    return made
+
+
+@pytest.mark.parametrize("filt", ["nearest", "bilinear"])
+@SHADING_CASES
+def test_shared_shading_records_match_plain_version(cuda, filt, case,
+                                                    monkeypatch):
+    """K5 shades a warp's solid hits together as K1 does, its owners
+    writing the shadow ratios and carrying the parent codes: on the cases
+    of ``test_shared_shading_matches_plain_version``, its records, winner
+    ids and picks equal the plain version's on >= 99.9% of pixels, its
+    ratios within 1e-5, its ``max_nodes`` exactly, and its image is K1's
+    bit for bit.  The outputs are allocated over a sentinel: every element
+    is written (unused slots padded), and nothing past their ends (the
+    203x37 image's lanes outside it write nothing)."""
+    width, rows, _, row0, depth, samples, _ = case
+    scene, packed, assets, cfg = shading_inputs(cuda, filt, case)
+    with monkeypatch.context() as m:
+        made = filled_empty(m)
+        img, rec = render_megakernel_record(packed, assets, cfg)
+    torch.cuda.synchronize()
+    assert len(made) == 6      # the image, rec, wid, ssr, pick, max_nodes
+    for buf, n in made:
+        sentinel = RECORD_SENTINEL[buf.dtype]
+        assert not bool((buf[:n] == sentinel).any()), "unwritten element"
+        assert bool((buf[n:] == sentinel).all()), "written past the end"
+    want, plain = render_megakernel_record_reference(packed, assets, cfg)
+    assert torch.equal(img, render_megakernel(packed, assets, cfg))
+    diff = (img - want).abs()
+    assert (diff.amax(-1) < 1e-3).float().mean() >= 0.999
+    assert float(diff.mean()) < 1e-4
+    n_pix = width * rows
+    deep = int(plain["max_nodes"])
+    print(f"{filt} {width}x{rows} from row {row0} d{depth} ss{samples}, "
+          f"{scene.num_lights} lights: max_nodes {deep}")
+    for key in ("rec", "wid", "pick"):
+        same = (rec[key] == plain[key]).reshape(-1, n_pix).all(0)
+        assert float(same.float().mean()) >= 0.999, key
+    assert float((rec["ssr"] - plain["ssr"]).abs().max()) <= 1e-5
+    assert int(rec["max_nodes"]) == deep
+    # children with a parent byte, which the shared shading must carry
+    assert bool(((plain["rec"] >= 0) & (plain["rec"] >> 8 & PC_VALID != 0)
+                 ).any())
+
+
+def test_images_past_2_31_image_elements(cuda):
+    """Above 715,827,882 pixels an image's float index, 3 x pixel, passes
+    2^31 while the pixel index does not: K1 and K5 (one record slot) on a
+    32768x21848 image at depth 1 store their last 8 rows as a render of
+    those rows alone does, records included."""
+    width, height, tail = 32768, 21848, 8
+    assert width * height * 3 >= 2 ** 31 > width * height
+    scene = tt.build_scene(tt.canonical_scene_spec(), cuda)
+    basis = tt.perspective_basis(tt.Camera(*GOLDEN_CAMERA), width, height,
+                                 device=cuda)
+    assets = tt.assets_from_arrays(*tt.random_asset_arrays(0, 256, 256),
+                                   cuda)
+    cfg = tt.RenderConfig(width=width, height=height, max_depth=1,
+                          record_slots=1)
+    slab = pack_scene(scene, basis, height - tail)
+    slab_cfg = cfg.replace(height=tail)
+    want = render_megakernel(slab, assets, slab_cfg)
+    img = render_megakernel(pack_scene(scene, basis), assets, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(img[-tail:], want)
+    del img
+    want_img, want_rec = render_megakernel_record(slab, assets, slab_cfg)
+    assert torch.equal(want_img, want)
+    img, rec = render_megakernel_record(pack_scene(scene, basis), assets, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(img[-tail:], want)
+    for key in ("rec", "wid", "ssr", "pick"):
+        assert torch.equal(rec[key][..., -tail * width:], want_rec[key]), key
 
 
 def test_bilinear_record_kernel_matches_plain_version(cuda):

@@ -28,8 +28,9 @@ from tpuray.textures import SceneAssets as JaxAssets
 
 import tpuray_torch as tt
 from tpuray_torch.kernels import primitives as pr
-from tpuray_torch.kernels.megakernel import (MAX_DEPTH_CAP, pack_scene,
-                                             render_megakernel,
+from tpuray_torch.kernels.megakernel import (MAX_DEPTH_CAP, _check_inputs,
+                                             pack_scene, render_megakernel,
+                                             render_megakernel_record,
                                              render_megakernel_reference)
 from tpuray_torch.kernels.triblocks import TRI_MAX_TRIANGLES
 from test_torch_cuda import many_triangles
@@ -191,6 +192,20 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="u8"):
         render_megakernel(packed, tt.SceneAssets(
             assets.textures.float(), assets.skybox), cfg)
+
+
+def test_wrappers_refuse_images_of_2_31_pixels():
+    """The kernel indexes pixels with 32-bit integers (and image and record
+    elements with 64-bit ones): both wrappers refuse 2^31 pixels or more
+    before allocating anything; one pixel fewer passes the check (the
+    render itself is not run; ``tests/test_torch_cuda.py`` renders an image
+    of more than 2^31 elements on the card)."""
+    packed, assets, cfg = _small_inputs()
+    big = cfg.replace(width=1 << 16, height=1 << 15)
+    for wrapper in (render_megakernel, render_megakernel_record):
+        with pytest.raises(ValueError, match="32-bit"):
+            wrapper(packed, assets, big)
+    _check_inputs(packed, assets, cfg.replace(width=(1 << 31) - 1, height=1))
 
 
 def test_triangles_and_bilinear_are_refused():

@@ -1,6 +1,6 @@
 // Whitted megakernel for NVIDIA Hopper (sm_90a): one thread renders one
-// pixel, start to finish; in K1 and K2 the threads of a warp shade their
-// solid hits together.
+// pixel, start to finish; without triangles (K1, K2, K5) the threads of a
+// warp shade their solid hits together.
 //
 // Replaces: tpuray/kernels/pallas_trace.py, _make_kernel.kernel (:659),
 // launched by _pallas_forward (:2314) on 16x128 pixel tiles, plus the XLA
@@ -42,7 +42,7 @@
 // ss feelers, and the deepest pixel runs 116 nodes in a row while most of
 // its warp's lanes, and most of the card, sit idle.
 //
-// K1 and K2 (COOP below) therefore shade a warp's solid hits together
+// K1, K2 and K5 (COOP below) therefore shade a warp's solid hits together
 // (warp_shade): each lane still finds its own node's hit, ambient or texel
 // term, Phong sums and continuation, but the nl x ss shadow feelers of all
 // the warp's solid hits are shared out over its 32 lanes, one feeler a
@@ -50,15 +50,23 @@
 // stays in the DFS loop as a helper until the warp's last pixel is done.
 // A deep node's chain shrinks to its hit tests, one round of feelers and
 // the Phong sums (the deep rows' feeler time fell 2.3x); the draws, the
-// sums and their order are the serial loop's, so K1 and K2 still equal
-// their plain version.  Where most lanes have a solid hit the rounds do
+// sums and their order are the serial loop's, so K1, K2 and K5 still
+// equal their plain version.  Where most lanes have a solid hit the rounds do
 // the serial loop's work plus their bookkeeping and the warp-wide
 // synchronisation: 1920x1080 depth 4 runs ~5% slower than with the serial
 // shading.  Shared memory: a 1.4 KB WarpTasks slice a warp (11 KB a
 // block), kept small because it is taken from L1, behind which the stack
-// frame lives.  K5 and the triangle instantiations keep the serial
-// shading, a thread a pixel, whose limit is still the issue rate and
-// divergence of each thread's DFS.
+// frame lives.  In K5 each owner also writes its node's shadow ratio per
+// light as it finishes the light, and its children's parent codes cross
+// the shared shading with it; the warp pads its pixels' unused record
+// slots together after the loop, one slot for all its pixels a store.
+// The padding is most of K5's bytes (~93% at 800x600 depth 15) and comes
+// in one burst as each warp ends; the records' codes, ids, picks and
+// padding are streaming stores (__stcs).  Without shadow samples a lane
+// shades its own hit with no warp-wide step.
+// The triangle instantiations keep the serial shading, a thread a pixel
+// (a triangle feeler walks the tree), whose limit is still the instruction rate
+// and divergence of each thread's DFS.
 //
 // For K1 ptxas gives ~80 registers and an ~800-byte stack frame (the ray
 // stack, in local memory; figures of every instantiation in PERF.md).  A
@@ -301,14 +309,28 @@ __device__ __forceinline__ V3 tap_sum(const uint8_t* img, const Taps& tp) {
 }
 
 // One node's record: its code, its parent byte, triangle id and NP texel
-// picks.
+// picks.  Records are written once here and read only by a later kernel
+// (the replay), so they go out as streaming stores (evict first): K5 at
+// 512x384 depth 3 without samples ran 5-10% faster than with plain stores
+// (PERF.md).
 template <int NP>
 __device__ __forceinline__ void write_record(const Records& R, int slot, size_t pix,
                                              size_t n_pix, int code, int pcode, int wid,
                                              const int (&pick)[NP]) {
-  R.rec[slot * n_pix + pix] = code | (pcode << 8);
-  R.wid[slot * n_pix + pix] = wid;
-  for (int t = 0; t < NP; ++t) R.pick[((size_t)slot * NP + t) * n_pix + pix] = pick[t];
+  __stcs(R.rec + slot * n_pix + pix, code | (pcode << 8));
+  __stcs(R.wid + slot * n_pix + pix, wid);
+  for (int t = 0; t < NP; ++t) __stcs(R.pick + ((size_t)slot * NP + t) * n_pix + pix, pick[t]);
+}
+
+// Slot `slot` of one pixel left unused: rec, wid and the NP picks -1, the nl
+// shadow ratios 0.
+template <int NP>
+__device__ __forceinline__ void pad_slot(const Records& R, int slot, size_t pix, size_t n_pix,
+                                         int nl) {
+  __stcs(R.rec + slot * n_pix + pix, -1);
+  __stcs(R.wid + slot * n_pix + pix, -1);
+  for (int t = 0; t < NP; ++t) __stcs(R.pick + ((size_t)slot * NP + t) * n_pix + pix, -1);
+  for (int i = 0; i < nl; ++i) __stcs(R.ssr + ((size_t)slot * nl + i) * n_pix + pix, 0.0f);
 }
 
 // One shadow sample toward light (lo, lrad) from ph (raytracing.cl:95-118):
@@ -399,7 +421,7 @@ __device__ __forceinline__ V3 phong(V3 acc, const float* L, const LightView& g, 
   return v3(acc.x + w * __ldg(L + 5), acc.y + w * __ldg(L + 6), acc.z + w * __ldg(L + 7));
 }
 
-// ---- warp-cooperative shading (K1, K2) ----
+// ---- warp-cooperative shading (K1, K2, K5) ----
 #define FULL_MASK 0xffffffffu
 #define WARPS_PER_BLOCK (BLOCK_X * BLOCK_Y / 32)
 #define SLOTS 8  // feelers of one task per chunk
@@ -441,19 +463,39 @@ __device__ __forceinline__ int small_div(int q, float inv) {
 // lanes, one a lane a round, each result written over its rng state; then
 // each owner adds its results in j order and finishes each light whose ss
 // samples are in, as the serial loop does.  Every owner walks the same j,
-// so the Phong terms run once for all of them.
+// so the Phong terms run once for all of them.  RECORD: an owner whose
+// node has record slot `slot` (>= 0) writes each light's shadow ratio
+// there as it finishes the light, with the record mode's geometry-only
+// dead test.
+template <bool RECORD>
 __device__ __forceinline__ V3 warp_shade(WarpTasks& W, bool shade, V3 ph, V3 n, V3 vdir,
                                          const float* M, float f, uint32_t& rng,
                                          const float* SPH, int ns, const float* PL,
                                          int npl, const float* LI, int nl, int ss,
-                                         float through, const Tris& T) {
+                                         float through, const Tris& T, const Records& R,
+                                         int slot, size_t pix, size_t n_pix) {
   V3 acc = v3(0.0f, 0.0f, 0.0f);
+  const bool rec_on = RECORD && slot >= 0;
+  if (ss == 0) {  // no feelers to share: each owner alone, every light at ratio 0 + 1
+    if (shade) {
+      const float diffuse = __ldg(M + M_DIFFUSE), specular = __ldg(M + M_SPECULAR),
+                  shininess = __ldg(M + M_SHININESS);
+      for (int i = 0; i < nl; ++i) {
+        const float* L = LI + LIGHT_STRIDE * i;
+        const LightView g = light_view<RECORD>(load3(L), ph, n, vdir, diffuse, specular,
+                                               shininess);
+        if (rec_on) R.ssr[((size_t)slot * nl + i) * n_pix + pix] = 0.0f + 1.0f;
+        acc = phong(acc, L, g, n, 0.0f + 1.0f, f, diffuse, specular, shininess);
+      }
+    }
+    return acc;
+  }
   const unsigned tasks = __ballot_sync(FULL_MASK, shade);
   if (!tasks) return acc;
   const unsigned lane = (threadIdx.y * BLOCK_X + threadIdx.x) & 31;
   const int rank = __popc(tasks & ((1u << lane) - 1u));
   const int K = __popc(tasks);
-  const float inv_k = 1.0f / (float)K, inv_ss = 1.0f / (float)max(ss, 1);
+  const float inv_k = 1.0f / (float)K, inv_ss = 1.0f / (float)ss;
   float diffuse = 0.0f, specular = 0.0f, shininess = 0.0f;
   if (shade) {
     diffuse = __ldg(M + M_DIFFUSE);
@@ -496,10 +538,11 @@ __device__ __forceinline__ V3 warp_shade(WarpTasks& W, bool shade, V3 ph, V3 n, 
         soft += __uint_as_float(W.slot[jj][rank]);
         if (++s == ss) {  // light li's samples are in
           const float* L = LI + LIGHT_STRIDE * li;
-          const LightView g = light_view<false>(load3(L), ph, n, vdir, diffuse, specular,
-                                                shininess);
-          acc = phong(acc, L, g, n, (g.dead ? 0.0f : soft) / (float)ss, f, diffuse,
-                      specular, shininess);
+          const LightView g = light_view<RECORD>(load3(L), ph, n, vdir, diffuse, specular,
+                                                 shininess);
+          const float ssr = (g.dead ? 0.0f : soft) / (float)ss;
+          if (rec_on) R.ssr[((size_t)slot * nl + li) * n_pix + pix] = ssr;
+          acc = phong(acc, L, g, n, ssr, f, diffuse, specular, shininess);
           soft = 0.0f;
           s = 0;
           ++li;
@@ -507,28 +550,19 @@ __device__ __forceinline__ V3 warp_shade(WarpTasks& W, bool shade, V3 ph, V3 n, 
       }
     }
   }
-  if (shade && ss == 0) {  // no samples: every light at ratio 0 + 1
-    for (int i = 0; i < nl; ++i) {
-      const float* L = LI + LIGHT_STRIDE * i;
-      const LightView g = light_view<false>(load3(L), ph, n, vdir, diffuse, specular,
-                                            shininess);
-      acc = phong(acc, L, g, n, 0.0f + 1.0f, f, diffuse, specular, shininess);
-    }
-  }
   return acc;
 }
 
+// One pixel, start to finish: the body of the kernels below.
 template <bool RECORD, bool TRIS, bool BILINEAR>
-__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
-megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
-           const uint8_t* __restrict__ tex, int tex_h, int tex_w,
-           const uint8_t* __restrict__ sky, int sky_h, int sky_w,
-           int width, int height, int max_depth, int shadow_samples,
-           float eps, float through, float default_n,
-           float* __restrict__ out, const Records R) {
-  // K1 and K2 shade their warp's solid hits together (warp_shade); K5 and
-  // the triangle instantiations shade each pixel's hit in its own thread
-  constexpr bool COOP = !RECORD && !TRIS;
+__device__ __forceinline__ void render_pixel(
+    const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
+    const uint8_t* __restrict__ tex, int tex_h, int tex_w, const uint8_t* __restrict__ sky,
+    int sky_h, int sky_w, int width, int height, int max_depth, int shadow_samples,
+    float eps, float through, float default_n, float* __restrict__ out, const Records R) {
+  // K1, K2 and K5 shade their warp's solid hits together (warp_shade); the
+  // triangle instantiations shade each pixel's hit in its own thread
+  constexpr bool COOP = !TRIS;
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
   const bool in_image = col < width && row < height;
@@ -537,8 +571,10 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
   // loop as a helper until its warp is done
   bool live = in_image;
   WarpTasks* W = warp_tasks<COOP>();
-  const size_t n_pix = (size_t)width * height;
-  const size_t pix = (size_t)row * width + col;
+  // 32-bit pixel indices (the wrappers refuse 2^31 pixels), which save
+  // registers; element offsets (3 x pix, slot x n_pix) are 64-bit
+  const int n_pix = width * height;
+  const int pix = in_image ? row * width + col : 0;
   constexpr int NP = BILINEAR ? 4 : 1;  // texel picks per node
 
   const float* SPH = sc + BASIS_SIZE;
@@ -580,9 +616,12 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
     bool shade = false;
     V3 ph, n, vdir;
     const float* M = nullptr;
+    // record mode: the node's slot if recorded (-1 if not), and its
+    // children's parent codes (0: the replay drops them)
+    int rec_slot = -1, pc_refl = 0, pc_refr = 0;
     // --- the shaded hit's reflect / refract continuation
-    //     (raytracing.cl:138-179); pc_*: the children's parent codes ---
-    auto next_ray = [&](int pc_refl, int pc_refr) {
+    //     (raytracing.cl:138-179) ---
+    auto next_ray = [&]() {
       float n2 = n1 == default_n ? __ldg(M + M_N) : default_n;
       float r0 = (n1 - n2) / (n1 + n2);
       r0 = r0 * r0;
@@ -642,8 +681,11 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
       // fit gives its children parent code 0, so the replay drops them
       const int slot = nodes++;
       const bool rec_on = RECORD && slot < R.krec;
-      const int pc_refl = rec_on ? (PC_VALID | slot) : 0;
-      const int pc_refr = rec_on ? (PC_VALID | PC_REFRACT | slot) : 0;
+      if (rec_on) {
+        rec_slot = slot;
+        pc_refl = PC_VALID | slot;
+        pc_refr = PC_VALID | PC_REFRACT | slot;
+      }
       // --- findLightIntersection (primitives.cl:262-318) ---
       float lt = INF;
       int lwin = 0;
@@ -699,7 +741,6 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
           int none[NP];
           for (int t = 0; t < NP; ++t) none[t] = -1;
           write_record(R, slot, pix, n_pix, LIGHT_CODE + lwin, pcode, -1, none);
-          for (int i = 0; i < nl; ++i) R.ssr[((size_t)slot * nl + i) * n_pix + pix] = 0.0f;
         }
       } else if (!isfinite(bt)) {
         // miss: skybox texel, weight f (raytracing.cl:61-81)
@@ -729,7 +770,6 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
         }
         if (rec_on) {
           write_record(R, slot, pix, n_pix, MISS_CODE, pcode, -1, pick);
-          for (int i = 0; i < nl; ++i) R.ssr[((size_t)slot * nl + i) * n_pix + pix] = 0.0f;
         }
       } else {
         pop = false;
@@ -799,9 +839,7 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
         ph = add(hp, scale(n, eps));  // eps-offset hit (primitives.cl:350)
         vdir = normalize(sub(o, ph));
         if (rec_on) write_record(R, slot, pix, n_pix, bwin, pcode, wid, pick);
-        if constexpr (COOP) {
-          shade = true;  // shaded with the warp below
-        } else {
+        if constexpr (!COOP) {  // (COOP: shaded with the warp below)
           // --- per-light soft-shadow Phong (raytracing.cl:87-136) ---
           const float diffuse = __ldg(M + M_DIFFUSE);
           const float specular = __ldg(M + M_SPECULAR);
@@ -822,17 +860,20 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
             acc = phong(acc, L, g, n, ssr, f, diffuse, specular, shininess);
           }
           cx2 = add(cx2, acc);
-          next_ray(pc_refl, pc_refr);
+          next_ray();
         }
       }
+      if (rec_on && !shade)  // a light or sky node: no shadow ratios
+        for (int i = 0; i < nl; ++i) R.ssr[((size_t)slot * nl + i) * n_pix + pix] = 0.0f;
     }
 
     if constexpr (COOP) {  // the warp's solid hits, shaded together
-      const V3 acc = warp_shade(*W, shade, ph, n, vdir, M, f, rng, SPH, ns, PL, npl, LI,
-                                nl, shadow_samples, through, T);
+      const V3 acc = warp_shade<RECORD>(*W, shade, ph, n, vdir, M, f, rng, SPH, ns, PL,
+                                        npl, LI, nl, shadow_samples, through, T, R,
+                                        rec_slot, pix, n_pix);
       if (shade) {
         cx2 = add(cx2, acc);
-        next_ray(0, 0);
+        next_ray();
       }
     }
     if (live && pop) {
@@ -853,18 +894,27 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
       }
     }
   }
+  if constexpr (RECORD && COOP) {
+    // the warp leaves the loop together: it pads the unused slots of its
+    // in-image pixels slot by slot, so that each store covers its 2 x 16
+    // neighbouring pixels, and reduces their node counts; lanes outside
+    // the image write nothing
+    const int lane = (threadIdx.y * BLOCK_X + threadIdx.x) & 31;
+    const int first = __reduce_min_sync(FULL_MASK, in_image ? min(nodes, R.krec) : R.krec);
+    for (int s = first; s < R.krec; ++s) {
+      if (in_image && s >= nodes) pad_slot<NP>(R, s, pix, n_pix, nl);
+    }
+    const int warp_max = __reduce_max_sync(FULL_MASK, in_image ? nodes : 0);
+    const unsigned inside = __ballot_sync(FULL_MASK, in_image);
+    if (inside && lane == __ffs(inside) - 1) atomicMax(R.max_nodes, warp_max);
+  }
   if (!in_image) return;
-  float* px = out + pix * 3;
+  float* px = out + (size_t)pix * 3;
   px[0] = c.x;
   px[1] = c.y;
   px[2] = c.z;
-  if constexpr (RECORD) {
-    for (int s = min(nodes, R.krec); s < R.krec; ++s) {
-      R.rec[s * n_pix + pix] = -1;
-      R.wid[s * n_pix + pix] = -1;
-      for (int t = 0; t < NP; ++t) R.pick[((size_t)s * NP + t) * n_pix + pix] = -1;
-      for (int i = 0; i < nl; ++i) R.ssr[((size_t)s * nl + i) * n_pix + pix] = 0.0f;
-    }
+  if constexpr (RECORD && !COOP) {
+    for (int s = min(nodes, R.krec); s < R.krec; ++s) pad_slot<NP>(R, s, pix, n_pix, nl);
     // image-wide max of the true node count: a warp reduction over the
     // threads that got here together, then one atomic per group
     const unsigned group = __activemask();
@@ -872,6 +922,36 @@ megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
     const int lane = (threadIdx.y * blockDim.x + threadIdx.x) & 31;
     if (lane == __ffs(group) - 1) atomicMax(R.max_nodes, warp_max);
   }
+}
+
+template <bool RECORD, bool TRIS, bool BILINEAR>
+__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
+megakernel(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
+           const uint8_t* __restrict__ tex, int tex_h, int tex_w,
+           const uint8_t* __restrict__ sky, int sky_h, int sky_w,
+           int width, int height, int max_depth, int shadow_samples,
+           float eps, float through, float default_n,
+           float* __restrict__ out, const Records R) {
+  render_pixel<RECORD, TRIS, BILINEAR>(
+      sc, ns, npl, nl, T, tex, tex_h, tex_w, sky, sky_h, sky_w, width, height, max_depth,
+      shadow_samples, eps, through, default_n, out, R);
+}
+
+// K5 without triangles: at most 2 blocks a multiprocessor, so that ptxas
+// may take up to 128 registers (95-96, no spills) where the bound above
+// leaves it 80 and 16-88 B of spills; faster at every shape measured,
+// 128x96 depth 3 (one wave of 48 blocks) included (PERF.md)
+template <bool BILINEAR>
+__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y, 2)
+megakernel_record(const float* __restrict__ sc, int ns, int npl, int nl, const Tris T,
+                  const uint8_t* __restrict__ tex, int tex_h, int tex_w,
+                  const uint8_t* __restrict__ sky, int sky_h, int sky_w,
+                  int width, int height, int max_depth, int shadow_samples,
+                  float eps, float through, float default_n,
+                  float* __restrict__ out, const Records R) {
+  render_pixel<true, false, BILINEAR>(
+      sc, ns, npl, nl, T, tex, tex_h, tex_w, sky, sky_h, sky_w, width, height, max_depth,
+      shadow_samples, eps, through, default_n, out, R);
 }
 
 typedef void (*Megakernel)(const float*, int, int, int, const Tris, const uint8_t*, int, int,
@@ -882,7 +962,8 @@ typedef void (*Megakernel)(const float*, int, int, int, const Tris, const uint8_
 template <bool RECORD>
 static Megakernel instantiation(bool tris, bool bilinear) {
   if (tris) return bilinear ? megakernel<RECORD, true, true> : megakernel<RECORD, true, false>;
-  return bilinear ? megakernel<RECORD, false, true> : megakernel<RECORD, false, false>;
+  if constexpr (RECORD) return bilinear ? megakernel_record<true> : megakernel_record<false>;
+  else return bilinear ? megakernel<false, false, true> : megakernel<false, false, false>;
 }
 
 extern "C" int tpuray_megakernel(const float* scene, int ns, int npl, int nl,

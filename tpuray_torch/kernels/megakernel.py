@@ -624,6 +624,9 @@ def _check_inputs(packed: PackedScene, assets: SceneAssets,
                          f"stack holds at most {MAX_DEPTH_CAP} levels")
     if cfg.shadow_samples < 0:
         raise ValueError(f"shadow_samples={cfg.shadow_samples} < 0")
+    if cfg.width * cfg.height >= 2 ** 31:
+        raise ValueError(f"{cfg.width}x{cfg.height} pixels: the megakernel "
+                         "indexes pixels with 32-bit integers")
     if not (buf.device == tex.device == sky.device):
         raise ValueError(f"scene on {buf.device}, textures on {tex.device}, "
                          f"skybox on {sky.device}: all must share a device")
@@ -755,7 +758,11 @@ def render_megakernel_record(packed: PackedScene, assets: SceneAssets,
     Tensors on the CPU go to :func:`render_megakernel_record_reference`.
     Tensors on a CUDA device launch the record instantiation of the CUDA
     kernel on the current stream (or raise); ``launches`` counts them,
-    ``bilinear_launches`` those with ``cfg.filter='bilinear'``.
+    ``bilinear_launches`` those with ``cfg.filter='bilinear'``.  The
+    outputs are allocated uninitialised: the kernel writes every element,
+    unused slots included.  Without triangles it shades a warp's solid hits
+    together, as the base kernel does (``warp_shade`` in
+    ``csrc/megakernel.cu``), each hit's owner writing its shadow ratios.
     ``max_nodes`` stays on the device: reading it synchronises."""
     _check_inputs(packed, assets, cfg)
     krec = _check_record(packed, cfg)

@@ -12,9 +12,11 @@ can alternate: it builds that tree's kernels, then times each case with
 may be two launches), 5 warm-ups, median of 30 calls, host overhead
 excluded.  The cases are K1 and K5 (record mode) on
 ``canonical_scene_spec()`` at 512x384 depth 3 without shadow samples, at
-128x96 depth 3 without, and at 800x600 depth 15 with 2 (K1 also on rows
-368-399 of that frame, which hold its deepest pixels, and at 1920x1080
-depth 4, each with 2 and without); in a tree that has ``meshes.py``, the
+128x96 depth 3 without, and at 800x600 depth 15 with 2 (K1 and K5 also on
+rows 368-399 of that frame, which hold its deepest pixels, with 2 and
+without; K1 at 1920x1080 depth 4 with 2 and without; K5 at 256x192 depth 3
+with 2, and with ``filter='bilinear'`` at 800x600 depth 15 with 2, in a tree
+that takes it); in a tree that has ``meshes.py``, the
 triangle path and its record mode on ``mesh_benchmark_scene(4)`` (7,424
 triangles) at 512x384 depth 3 with 2, the triangle path on 163,840
 triangles (``(6, torus_res=(256, 160))``) at 512x384 depth 3 with 2 and on
@@ -30,7 +32,9 @@ starts with PREFIX (or one of several, comma-separated).
 It prints the card's name and power limit, then per tree the registers and
 stack frame that ptxas reports for each instantiation (when the tree's
 kernels were built in this run) and one JSON line of medians in
-microseconds.  Needs a CUDA device.
+microseconds (null for a case whose profile lost events three times, with a
+line naming it; the run then goes on to the other trees and exits nonzero at
+the end).  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -59,6 +63,12 @@ CASES = [  # name, width, height, depth, shadow samples, record, mesh, filter
     ("K5 512x384 d3 ss0", 512, 384, 3, 0, True, None, "nearest"),
     ("K5 128x96 d3 ss0", 128, 96, 3, 0, True, None, "nearest"),
     ("K5 800x600 d15 ss2", 800, 600, 15, 2, True, None, "nearest"),
+    ("K5 800x600 d15 rows 368-399", 800, 600, 15, 2, True, None, "nearest"),
+    ("K5 800x600 d15 ss0 rows 368-399", 800, 600, 15, 0, True, None,
+     "nearest"),
+    ("K5 256x192 d3 ss2", 256, 192, 3, 2, True, None, "nearest"),
+    ("K5 800x600 d15 ss2 bilinear", 800, 600, 15, 2, True, None,
+     "bilinear"),
     ("K3 512x384 d3 ss2 7424 tris", 512, 384, 3, 2, False, MESH_K3,
      "nearest"),
     ("K5 512x384 d3 ss2 7424 tris", 512, 384, 3, 2, True, MESH_K3, "nearest"),
@@ -92,9 +102,10 @@ def device_us(prof, calls):
         sum(times[i * per_call:(i + 1) * per_call]) for i in range(whole)), 2)
 
 
-def timed(fn, attempts=3):
+def timed(name, fn, attempts=3):
     """``device_us`` of ITERS calls of ``fn`` after WARMUP; profiled again
-    when the profiler dropped more events than it tolerates."""
+    when the profiler dropped more events than it tolerates, and ``None``
+    (with a line naming case ``name``) when it did so every time."""
     import torch
 
     for _ in range(WARMUP):
@@ -108,9 +119,10 @@ def timed(fn, attempts=3):
             torch.cuda.synchronize()
         try:
             return device_us(prof, ITERS)
-        except RuntimeError:
+        except RuntimeError as err:
             if attempt == attempts - 1:
-                raise
+                print(f"{name}: not measured ({err})", flush=True)
+                return None
 
 
 def worker(tree: str, only: str = "") -> None:
@@ -164,7 +176,7 @@ def worker(tree: str, only: str = "") -> None:
         packed = pack_scene(scene, tt.perspective_basis(
             camera, width, height, device=dev), row0)
         render = render_megakernel_record if record else render_megakernel
-        out[name] = timed(lambda: render(packed, assets, cfg))
+        out[name] = timed(name, lambda: render(packed, assets, cfg))
         del packed
         torch.cuda.empty_cache()
     if has_query:
@@ -186,12 +198,15 @@ def worker(tree: str, only: str = "") -> None:
                                torch.full_like(t, 4.0))
             tmax[::11] = 0.0
             if mode == "closest":
-                out[name] = timed(lambda: query.tri_query_closest(tables, o,
-                                                                  d))
+                out[name] = timed(name, lambda: query.tri_query_closest(
+                    tables, o, d))
             else:
-                out[name] = timed(lambda: query.tri_query_blocker(
+                out[name] = timed(name, lambda: query.tri_query_blocker(
                     tables, o, d, tmax))
     print("median us", json.dumps(out), flush=True)
+    lost = [name for name, us in out.items() if us is None]
+    if lost:
+        raise SystemExit(f"kernel_ab: not measured in {tree}: {lost}")
 
 
 def main(argv=None) -> None:
@@ -208,11 +223,15 @@ def main(argv=None) -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
+    failed = []
     for tree in argv:
         tree = os.path.abspath(tree)
         print("==", tree, flush=True)
-        subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--worker", tree, only], check=True, timeout=900)
+        if subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--worker", tree, only], timeout=900).returncode:
+            failed.append(tree)
+    if failed:
+        raise SystemExit(f"kernel_ab: a case or a tree failed in {failed}")
 
 
 if __name__ == "__main__":
