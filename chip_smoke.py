@@ -67,7 +67,19 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     the records), and the DFS work per pixel and
     per warp (:class:`NodeCount`) at 800x600 d15 and 1920x1080 d4; the
     bounds of K1 and K2 at 1920x1080 d4 and K5's time and bound at 800x600
-    d15, also at the fp32 rate without FMA.
+    d15, also at the fp32 rate without FMA;
+20. sharding (``tpuray_torch.parallel``) on worlds of ranks on this one
+    card, started by ``distributed.launch``: a world of 1 over NCCL
+    (``render_sharded_pallas`` at 1920x1080 d4 and 800x600 d15 bit-equal
+    to ``render()``, ``loss_and_scene_grad_sharded_pallas`` at 128x96 d3
+    ss0 bit-equal to one rank's loss and gradients), what NCCL says to a
+    world of 2 on one card, a world of 2 over gloo (K1, K2, K3 and K4 with
+    rows sharded, bit-equal to one render; K5 and the replay against one
+    rank's loss and gradients at the bar of
+    ``tests/sharding_subproc.py:199-201``; triangles sharded over K6 on
+    7,424 and 163,840 triangles against one rank's tracer) and a world of
+    4 over gloo (pixels x triangles on a 2x2 mesh), with each check's max
+    |d|, differing pixels, kernel launches and wall time per rank.
 
 It prints a JSON line of per-kernel results, then, last, the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it fails and
@@ -163,6 +175,17 @@ U8_WITHIN_1 = 0.98
 U8_MEAN = 1.0
 TRACER_INVRENDER_STEPS = 10
 TRACER_MESH_STEPS = 5
+# phase 20: worlds on the one card (name, ranks, backend); NCCL takes one
+# rank per card, so several ranks share it over gloo
+SHARD_WORLDS = (("world 1", 1, "nccl"), ("world 2", 2, "gloo"),
+                ("world 4", 4, "gloo"))
+SHARD_TIMEOUT = 300
+NCCL_PROBE_TIMEOUT = 90
+# sharded gradients against one rank's (tests/sharding_subproc.py:199-201);
+# the scene-parallel tracer against one rank's
+SHARD_LOSS_RTOL = 1e-5
+SHARD_GRAD_RTOL, SHARD_GRAD_ABS = 5e-3, 5e-5
+SCENE_PARALLEL_ABS = 1e-6
 
 
 def phase(n, name, text):
@@ -1648,6 +1671,211 @@ def tracer_phases(tt, dev, card, scene, assets, camera, mesh_specs,
     phase(18, "invrender --engine tracer", f"{card}: " + "; ".join(results))
 
 
+def shard_rank(world):
+    """Phase 20 on one rank of a world of ``world`` ranks on the card (run
+    by ``distributed.launch``): the checks of its world, each run once to
+    warm up, then driven with its kernels' launch counts set to 0 just
+    before it and read just after, timed on the host clock from a barrier
+    to a synchronise; rank 0 also
+    renders each check on its own and compares.  Returns one dict a
+    check."""
+    import numpy as np
+    import torch.distributed as dist
+
+    import tpuray_torch as tt
+    from tpuray_torch.kernels import query
+    from tpuray_torch.kernels.megakernel import (render_megakernel,
+                                                 render_megakernel_record)
+    from tpuray_torch.meshes import mesh_benchmark_scene
+    from tpuray_torch.parallel import shard
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    camera = tt.Camera(*GOLDEN_CAMERA)
+    scene = tt.build_scene(tt.canonical_scene_spec(), dev)
+    assets = tt.assets_from_arrays(
+        *tt.random_asset_arrays(ASSET_SEED, 512, 512), dev)
+    kernels = {"K1": (render_megakernel,), "K2": (render_megakernel,),
+               "K3": (render_megakernel,), "K4": (render_megakernel,),
+               "K5": (render_megakernel_record,),
+               "K6": (query.tri_query_closest, query.tri_query_blocker)}
+    checks = []
+
+    def inputs(width, height, depth, samples=2, **kw):
+        cfg = tt.RenderConfig(width=width, height=height, max_depth=depth,
+                              shadow_samples=samples, **kw)
+        return tt.perspective_basis(camera, width, height, device=dev), cfg
+
+    def check(name, kernel, sharded, single, grads=False):
+        sharded()               # warm-up, not timed and not counted
+        for fn in kernels[kernel]:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        got = sharded()
+        torch.cuda.synchronize()
+        entry = {"name": name, "kernel": kernel,
+                 "wall": time.perf_counter() - t0,
+                 "launches": sum(fn.launches for fn in kernels[kernel])}
+        if rank == 0:
+            want = single()
+            if grads:
+                (loss, g), (want_loss, w) = got, want
+                pairs = [(g[k], w[k]) for k in w]
+                entry["loss"] = (float(loss), float(want_loss))
+                entry["within"] = bool(
+                    abs(float(loss) - float(want_loss))
+                    <= SHARD_LOSS_RTOL * abs(float(want_loss))
+                    and all(torch.allclose(a, b, rtol=SHARD_GRAD_RTOL,
+                                           atol=SHARD_GRAD_ABS)
+                            for a, b in pairs))
+                entry["equal"] = bool(float(loss) == float(want_loss) and all(
+                    torch.equal(a, b) for a, b in pairs))
+                entry["max_abs"] = max(float((a - b).abs().max())
+                                       for a, b in pairs if a.numel())
+                entry["n_diff"] = sum(int((a != b).sum()) for a, b in pairs)
+                entry["finite"] = all(bool(torch.isfinite(a).all())
+                                      for a, _ in pairs)
+            else:
+                entry["shape"] = tuple(got.shape)
+                entry["equal"] = bool(torch.equal(got, want))
+                entry["max_abs"] = float((got - want).abs().max())
+                entry["n_diff"] = int((got != want).any(-1).sum())
+                entry["finite"] = bool(torch.isfinite(got).all())
+                entry["within"] = entry["max_abs"] <= SCENE_PARALLEL_ABS
+        checks.append(entry)
+
+    def rows_check(name, kernel, s, width, height, depth, mesh, **kw):
+        basis, cfg = inputs(width, height, depth, **kw)
+        check(name, kernel,
+              lambda: shard.render_sharded_pallas(s, assets, basis, cfg,
+                                                  mesh),
+              lambda: tt.render_from_basis(s, assets, basis, cfg))
+
+    def k5_check(mesh):
+        basis, cfg = inputs(128, 96, 3, 0)
+        rng = np.random.default_rng(ASSET_SEED)
+        target = torch.from_numpy(rng.uniform(0, 1, (96, 128, 3)).astype(
+            np.float32)).to(dev)
+
+        def single():
+            return tt.value_and_scene_grad(
+                lambda s: torch.sum((tt.render_megakernel_diff(
+                    s, assets, basis, cfg).clamp(0.0, 1.0) - target) ** 2),
+                scene)
+
+        check("K5 + replay 128x96 d3 ss0", "K5",
+              lambda: shard.loss_and_scene_grad_sharded_pallas(
+                  scene, assets, basis, target, cfg, mesh), single, True)
+
+    def tracer_check(name, s, width, height, depth, mesh, fn):
+        basis, cfg = inputs(width, height, depth)
+        check(name, "K6", lambda: fn(s, assets, basis, cfg, mesh),
+              lambda: tt.render_from_basis_tracer(s, assets, basis, cfg))
+
+    if world == 1:
+        mesh = shard.make_mesh()
+        rows_check("K1 1920x1080 d4", "K1", scene, 1920, 1080, 4, mesh)
+        rows_check("K1 800x600 d15", "K1", scene, 800, 600, 15, mesh)
+        k5_check(mesh)
+    elif world == 2:
+        mesh = shard.make_mesh()
+        t0 = time.perf_counter()
+        meshes = {key: tt.build_scene(mesh_benchmark_scene(*spec), dev)
+                  for key, spec in (("k3", MESH_K3), ("k4", MESH_K4))}
+        checks.append({"name": "mesh scenes loaded", "rank": rank,
+                       "wall": time.perf_counter() - t0})
+        rows_check("K1 1920x1080 d4", "K1", scene, 1920, 1080, 4, mesh)
+        rows_check("K1 800x600 d15", "K1", scene, 800, 600, 15, mesh)
+        rows_check("K2 800x600 d15", "K2", scene, 800, 600, 15, mesh,
+                   filter="bilinear")
+        for key, kernel in (("k3", "K3"), ("k4", "K4")):
+            rows_check(f"{kernel} {meshes[key].num_triangles:,} triangles "
+                       "512x384 d3 ss2", kernel, meshes[key], 512, 384, 3,
+                       mesh)
+        k5_check(mesh)
+        for key in ("k3", "k4"):
+            tracer_check(f"K6 scene-parallel {meshes[key].num_triangles:,} "
+                         "triangles 512x384 d3 ss2", meshes[key], 512, 384,
+                         3, mesh, shard.render_scene_parallel)
+    else:
+        mesh2d = shard.make_mesh(shape=(world // 2, 2))
+        k3 = tt.build_scene(mesh_benchmark_scene(*MESH_K3), dev)
+        tracer_check(f"K6 pixels x triangles 2x2 {k3.num_triangles:,} "
+                     "triangles 128x96 d2 ss2", k3, 128, 96, 2, mesh2d,
+                     shard.render_sharded_2d)
+    for entry in checks:
+        entry["rank"] = rank
+        entry["backend"] = dist.get_backend()
+    return checks
+
+
+def nccl_probe():
+    """One all-reduce over NCCL (phase 20: a world of 2 on one card)."""
+    import torch.distributed as dist
+    x = torch.ones(1, device="cuda")
+    dist.all_reduce(x)
+    return float(x)
+
+
+def shard_phase(card):
+    """Phase 20: the worlds of ``SHARD_WORLDS`` on this card (see
+    :func:`shard_rank`), and what NCCL says to a world of 2 on one card.
+    Every check must pass, and every kernel of a check must have launched
+    on every rank."""
+    from tpuray_torch.parallel import distributed
+
+    torch.cuda.empty_cache()
+    results, failed = [], []
+    for label, world, backend in SHARD_WORLDS:
+        t0 = time.perf_counter()
+        ranks = distributed.launch(shard_rank, world, world, backend=backend,
+                                   device="cuda", timeout=SHARD_TIMEOUT)
+        texts = []
+        for name in [e["name"] for e in ranks[0]]:
+            per_rank = [next(e for e in r if e["name"] == name)
+                        for r in ranks]
+            first = per_rank[0]
+            walls = ", ".join(f"{e['wall']:.3f}" for e in per_rank)
+            if "kernel" not in first:
+                texts.append(f"{name}: {walls} s per rank")
+                continue
+            launches = [e["launches"] for e in per_rank]
+            text = (f"{name}: max|d| {first['max_abs']:.3g}, "
+                    f"{first['n_diff']} differing "
+                    f"{'gradient elements' if 'loss' in first else 'pixels'}"
+                    f", bit-equal {first['equal']}, {first['kernel']} "
+                    f"launches {launches}, wall {walls} s per rank")
+            if "loss" in first:
+                text += (f", loss {first['loss'][0]!r} vs one rank's "
+                         f"{first['loss'][1]!r}")
+            texts.append(text)
+            ok = first["finite"] and min(launches) >= 1 and (
+                first["equal"] if world == 1 or first["kernel"] in
+                ("K1", "K2", "K3", "K4") else first["within"])
+            if not ok:
+                failed.append(f"{label}: {text}")
+        backends = sorted({e["backend"] for r in ranks for e in r})
+        results.append(f"{label} ({'/'.join(backends)}, "
+                       f"{time.perf_counter() - t0:.1f} s): "
+                       + "; ".join(texts))
+    try:
+        distributed.launch(nccl_probe, 2, backend="nccl", device="cuda",
+                           timeout=NCCL_PROBE_TIMEOUT)
+        said = "a world of 2 over NCCL on one card ran"
+    except (RuntimeError, TimeoutError) as e:
+        lines = [ln.strip() for ln in str(e).splitlines()
+                 if "NCCL" in ln or "Error" in ln or "Duplicate" in ln
+                 or "did not finish" in ln]
+        said = ("a world of 2 over NCCL on one card raised: "
+                + " | ".join(lines[-3:]))
+    results.append(said)
+    phase(20, "sharding", f"{card}: " + "; ".join(results))
+    if failed:
+        raise RuntimeError("sharded paths disagree: " + "; ".join(failed))
+
+
 def write_inputs(tt, tmp, tex, sky):
     """A render.map of the canonical scene and an asset directory of the
     seeded images, as the apps read them."""
@@ -2043,6 +2271,7 @@ def main():
         tracer_phases(tt, dev, card, scene, assets, camera, mesh_specs,
                       mesh_scenes, app_inputs, asset_args, query_entries)
     deep_phase(tt, dev, card, scene, assets, camera)
+    shard_phase(card)
 
     print(json.dumps({"kernels": [{
         "name": "megakernel",

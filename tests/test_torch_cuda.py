@@ -2,7 +2,8 @@
 bilinear and record instantiations and the triangle-query kernel, built
 with nvcc from the repository's sources and held against their plain
 PyTorch versions; the gradient through ``render_megakernel_diff`` and the
-whole-image tracer against the same on the CPU; the wrappers' refusals.  Every test needs an
+whole-image tracer against the same on the CPU; the wrappers' refusals;
+the sharded paths on one and two ranks.  Every test needs an
 NVIDIA GPU and the CUDA toolkit and skips without them (marker ``cuda``);
 on the card run ``python -m pytest tests/test_torch_cuda.py -q``."""
 import dataclasses
@@ -620,3 +621,40 @@ def check_record_refusals(device):
     _, records = render_megakernel_record(
         packed, assets, cfg.replace(filter="bilinear", record_slots=8))
     assert records["pick"].shape == (8, 4, 32)
+
+
+@pytest.mark.parametrize("world, backend", [(1, "nccl"), (2, "gloo")])
+def test_sharded_paths_match_one_rank(cuda, world, backend):
+    """``tpuray_torch.parallel.selfcheck``'s cases on the card: one rank
+    over NCCL, and two ranks sharing the card over gloo (NCCL takes one
+    rank per card).  Rows sharded over the megakernel (K1, K3) are bit-equal
+    to one render; the tracer's shares and the scene-parallel queries (K6)
+    within 1e-6; the gradients of one rank bit-equal, of two at the bar of
+    ``tests/sharding_subproc.py:199-201``."""
+    from tpuray_torch.parallel import distributed, selfcheck
+    res = distributed.launch(selfcheck.checks, world, "cuda", backend=backend,
+                             device="cuda", timeout=300)[0]
+    assert str(res["backend"]) == backend
+    for case in ("b", "b_mesh"):
+        np.testing.assert_array_equal(res[f"{case}/sharded"],
+                                      res[f"{case}/single"], err_msg=case)
+    for case in ("a", "e", "h", "i"):
+        got, want = res[f"{case}/sharded"], res[f"{case}/single"]
+        assert np.isfinite(got).all() and np.abs(got - want).max() <= 1e-6, \
+            case
+    for case in ("c", "d"):
+        loss = res[f"{case}/sharded/loss"]
+        want_loss = res[f"{case}/single/loss"]
+        names = [k.rsplit("/", 1)[1] for k in res
+                 if k.startswith(f"{case}/sharded/grad/")]
+        assert names
+        if world == 1:
+            assert loss == want_loss, case
+        np.testing.assert_allclose(loss, want_loss, rtol=1e-5, err_msg=case)
+        for name in names:
+            got = res[f"{case}/sharded/grad/{name}"]
+            want = res[f"{case}/single/grad/{name}"]
+            if world == 1:
+                np.testing.assert_array_equal(got, want, err_msg=name)
+            np.testing.assert_allclose(got, want, rtol=5e-3, atol=5e-5,
+                                       err_msg=f"{case} {name}")

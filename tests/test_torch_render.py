@@ -138,7 +138,8 @@ def test_port_imports_neither_jax_nor_tpuray():
             "tpuray_torch.utils.checkpoint, tpuray_torch.meshes, "
             "tpuray_torch.kernels.triblocks, tpuray_torch.utils.kernel_ab, "
             "tpuray_torch.kernels.trace, tpuray_torch.kernels.query, "
-            "chip_smoke; "
+            "tpuray_torch.parallel.distributed, tpuray_torch.parallel.shard, "
+            "tpuray_torch.parallel.selfcheck, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpuray', 'triton')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -32,8 +32,19 @@ lanes whose answer the step uses.
 
 Where the JAX tracer's formulas differ in rounding from the megakernel's
 (``1 / sqrt`` for ``normalize3``, the xorshift32 sample converted from u32),
-this module follows the tracer.  Left out: the scene-parallel ``tri_axis``
-and ``tri_shards`` (ROADMAP A10) and the one-hot ``_take`` (a GPU gathers).
+this module follows the tracer.  Left out: the one-hot ``_take`` (a GPU
+gathers).
+
+Scene parallelism (``trace_rays(..., tri_group=group)``, JAX's ``tri_axis``
+and ``tri_shards``): every rank of the process group traces the same rays
+and builds its query tables from its own contiguous slice of
+``ceil(T / n)`` triangles; the scene stays whole, because materials,
+normals and the autograd t are read by global id.  A closest query reduces
+t by ``all_reduce(MIN)``, then the global ids of the ranks holding that t
+by a second ``MIN``, so the lowest id wins a tie across slices as it does
+in one; a blocker query reduces the blocked flag by ``MAX`` and the
+transparent count by ``SUM``.  A rank with an empty slice still takes part
+in every reduction.
 """
 from __future__ import annotations
 
@@ -42,6 +53,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import RenderConfig
 from ..scene import Materials, Scene
@@ -55,23 +67,60 @@ F32 = torch.float32
 
 class TriangleQueries:
     """The triangle answers of one trace through the query wrappers, over
-    tables built once (``trace.py:154-184``)."""
+    tables built once (``trace.py:154-184``); with ``group``, over this
+    rank's slice of the triangles, reduced over the group
+    (``trace.py:257-290``, ``:357-370``)."""
 
-    def __init__(self, scene: Scene):
+    def __init__(self, scene: Scene, group=None):
+        self.count = scene.num_triangles
+        self.group = group
+        self.lo, hi = 0, self.count
+        if group is not None:
+            per = -(-self.count // dist.get_world_size(group))
+            self.lo = min(dist.get_rank(group) * per, self.count)
+            hi = min(self.lo + per, self.count)
         self.tables: Optional[TriTables] = None
-        if scene.num_triangles:
+        if hi > self.lo:
             self.tables = build_query_tables(
-                scene.tri_v0, scene.tri_v1, scene.tri_v2,
-                scene.tri_mat.transparent)
+                *(x[self.lo:hi] for x in (scene.tri_v0, scene.tri_v1,
+                                          scene.tri_v2,
+                                          scene.tri_mat.transparent)))
 
     def closest(self, o, d):
-        return query.tri_query_closest(self.tables, o.detach().contiguous(),
-                                       d.detach().contiguous())
+        o, d = o.detach().contiguous(), d.detach().contiguous()
+        if self.tables is not None:
+            t, wid = query.tri_query_closest(self.tables, o, d)
+        else:
+            t = torch.full(o.shape[:1], float("inf"), device=o.device)
+            wid = torch.full(o.shape[:1], -1, dtype=torch.int32,
+                             device=o.device)
+        if self.group is None:
+            return t, wid
+        t_g = t.clone()
+        dist.all_reduce(t_g, op=dist.ReduceOp.MIN, group=self.group)
+        hit = torch.isfinite(t_g)
+        gid = torch.where((t == t_g) & hit, wid.to(torch.int64) + self.lo,
+                          torch.full_like(wid, self.count, dtype=torch.int64))
+        dist.all_reduce(gid, op=dist.ReduceOp.MIN, group=self.group)
+        return t_g, torch.where(hit, gid, -1)
 
     def blocker(self, o, d, tmax, inclusive: bool):
-        return query.tri_query_blocker(
-            self.tables, o.detach().contiguous(), d.detach().contiguous(),
-            tmax.detach().contiguous(), inclusive)
+        o, d = o.detach().contiguous(), d.detach().contiguous()
+        tmax = tmax.detach().contiguous()
+        if self.tables is not None:
+            blocked, count = query.tri_query_blocker(self.tables, o, d, tmax,
+                                                     inclusive)
+        else:
+            blocked = torch.zeros(o.shape[:1], dtype=torch.bool,
+                                  device=o.device)
+            count = torch.zeros(o.shape[:1], dtype=torch.int32,
+                                device=o.device)
+        if self.group is None:
+            return blocked, count
+        blocked = blocked.to(torch.int32)
+        dist.all_reduce(blocked, op=dist.ReduceOp.MAX, group=self.group)
+        dist.all_reduce(count, op=dist.ReduceOp.SUM, group=self.group)
+        return blocked.bool(), count
 
 
 @dataclasses.dataclass
@@ -87,8 +136,9 @@ class SceneTables:
     tris: TriangleQueries
 
 
-def scene_tables(scene: Scene) -> SceneTables:
-    """The :class:`SceneTables` of ``scene``."""
+def scene_tables(scene: Scene, tri_group=None) -> SceneTables:
+    """The :class:`SceneTables` of ``scene``; triangle queries over
+    ``tri_group`` as :class:`TriangleQueries` makes them."""
     parts = (scene.sphere_mat, scene.plane_mat, scene.tri_mat)
     mats = Materials(**{f.name: torch.cat([getattr(p, f.name) for p in parts])
                         for f in dataclasses.fields(Materials)})
@@ -98,7 +148,7 @@ def scene_tables(scene: Scene) -> SceneTables:
         tri_normals=_normalize(pr.cross3(scene.tri_v1 - scene.tri_v0,
                                          scene.tri_v2 - scene.tri_v0)),
         plane_b0=b0, plane_b1=b1,
-        tris=TriangleQueries(scene))
+        tris=TriangleQueries(scene, tri_group))
 
 
 def _normalize(v):
@@ -186,7 +236,7 @@ def _tri_any_blocker(tris: TriangleQueries, o, d, tmax, inclusive: bool,
     blocked = torch.zeros(p, dtype=torch.bool, device=o.device)
     opacity = torch.ones(p, dtype=F32, device=o.device)
     lanes = _lanes(active & (tmax > 0))
-    if tris.tables is None or not lanes.numel():
+    if not tris.count or not lanes.numel():
         return blocked, opacity
     b, count = tris.blocker(o[lanes], d[lanes], tmax[lanes], inclusive)
     through = torch.tensor(TRI_THROUGH, dtype=F32, device=o.device)
@@ -545,13 +595,17 @@ def _trace_step(scene: Scene, assets: SceneAssets, cfg: RenderConfig,
 
 
 def trace_rays(scene: Scene, assets: SceneAssets, o, d, pixel_ids,
-               cfg: RenderConfig) -> torch.Tensor:
+               cfg: RenderConfig, tri_group=None) -> torch.Tensor:
     """Trace the rays (o [P, 3], d [P, 3]) of the pixels ``pixel_ids`` [P]
     (which seed their xorshift32 states) to the end: linear rgb [P, 3],
     unclamped, as the reference accumulates it before its final clamp
     (raytracing.cl:193).  A lane still running after ``cfg.max_iters``
-    steps (loop 'while') or the scan's steps reports what it gathered."""
-    tables = scene_tables(scene)
+    steps (loop 'while') or the scan's steps reports what it gathered.
+
+    With ``tri_group`` (a process group) the triangles are sharded over its
+    ranks, which must all trace the same rays (scene parallelism, see the
+    module docstring)."""
+    tables = scene_tables(scene, tri_group)
     st = _init_state(o, d, pixel_ids, cfg)
     if cfg.loop == "while":
         it = 0
