@@ -79,7 +79,19 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     ``tests/sharding_subproc.py:199-201``; triangles sharded over K6 on
     7,424 and 163,840 triangles against one rank's tracer) and a world of
     4 over gloo (pixels x triangles on a 2x2 mesh), with each check's max
-    |d|, differing pixels, kernel launches and wall time per rank.
+    |d|, differing pixels, kernel launches and wall time per rank;
+21. the viewer and the last host modules: ``apps/rayview --keys`` at
+    800x600 d6 (19 keys, every binding) must pack the scene once and launch
+    K1 once a frame, its last frame must agree with the plain version and
+    its PNGs with its frames, with the median frame's device and host time
+    and the host's split (swap, copy back, PNG); the same on the
+    7,424-triangle archive at 512x384 d3 through K3, against a loop of
+    ``render_from_basis``; ``serve`` on 127.0.0.1 with the real renderer
+    (/frame.jpg, /key, one /stream part, shut down within 10 s) with the
+    JPEG time a frame; raypng ``--profile`` at 800x600 d15, whose trace must
+    hold a megakernel kernel event, and ``timed``; ``nan_guard`` catching a
+    NaN out of K1; the native codec's status and, where it built, its PNGs
+    and scene archives against the numpy + zlib codec and ``dumps_scene``.
 
 It prints a JSON line of per-kernel results, then, last, the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it fails and
@@ -106,8 +118,10 @@ rate.
 import json
 import os
 import re
+import statistics
 import subprocess
 import tempfile
+import threading
 import time
 
 import torch
@@ -186,6 +200,13 @@ NCCL_PROBE_TIMEOUT = 90
 SHARD_LOSS_RTOL = 1e-5
 SHARD_GRAD_RTOL, SHARD_GRAD_ABS = 5e-3, 5e-5
 SCENE_PARALLEL_ABS = 1e-6
+# phase 21: the viewer's key script, every binding (wasd, space, _, arrows),
+# and its shapes (width, height, depth): the JAX viewer's default, the mesh
+# archive's of phase 12, raypng's golden one for --profile
+VIEWER_KEYS = "wasd _8246wd8 s6_a2"
+VIEWER_SHAPE = (800, 600, 6)
+VIEWER_MESH_SHAPE = (512, 384, 3)
+PROFILE_SHAPE = (800, 600, 15)
 
 
 def phase(n, name, text):
@@ -1876,6 +1897,323 @@ def shard_phase(card):
         raise RuntimeError("sharded paths disagree: " + "; ".join(failed))
 
 
+class Counted:
+    """Wraps a function of a module and counts its calls (and their host
+    time in ms) until ``restore``."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.ms = []
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args, **kw)
+        finally:
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+
+    def restore(self):
+        setattr(self.module, self.name, self.fn)
+
+
+def viewer_frames(tt, rayview, argv):
+    """``rayview.main(argv)`` with the megakernel's launches counted from 0
+    and the packs and triangle-table builds counted; returns (result,
+    K1 launches, record launches, packs, table builds)."""
+    from tpuray_torch.kernels import megakernel
+
+    packs = Counted(rayview, "pack_scene")
+    builds = Counted(megakernel, "build_tri_tables")
+    try:
+        megakernel.render_megakernel.launches = 0
+        megakernel.render_megakernel_record.launches = 0
+        res = rayview.main(argv)
+        return (res, megakernel.render_megakernel.launches,
+                megakernel.render_megakernel_record.launches,
+                len(packs.ms), len(builds.ms))
+    finally:
+        packs.restore()
+        builds.restore()
+
+
+def frame_split(res):
+    """Medians (ms) of the frames after the first: device (None off the
+    card), host, and the host's swap, copy back and PNG writing."""
+    times = res["loop"].times[1:]
+    split = {key: statistics.median([t[key] for t in times])
+             for key in ("frame", "swap", "copy")}
+    device = [t["device"] for t in times]
+    split["device"] = None if None in device else statistics.median(device)
+    split["png"] = statistics.median(res["png_ms"])
+    return split
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def viewer_phase(tt, dev, card, mesh_spec, tex, sky, mounted):
+    """Phase 21: the viewer (``apps/rayview``: scripted frames on the
+    canonical scene and on a mesh archive, ``serve``), raypng's
+    ``--profile``, ``timed``, ``nan_guard`` and the native codec."""
+    import urllib.request
+
+    from tpuray_torch import io as tio
+    from tpuray_torch import native_lib
+    from tpuray_torch.apps import raypng, rayview
+    from tpuray_torch.kernels.megakernel import (
+        render_megakernel, render_megakernel_reference)
+    from tpuray_torch.utils.debug import nan_guard
+    from tpuray_torch.utils.metrics import timed
+
+    results = []
+    t_phase = time.perf_counter()
+    width, height, depth = VIEWER_SHAPE
+
+    def shape_args(w, h, d):
+        return ["--width", str(w), "--height", str(h), "--depth", str(d),
+                "--device", dev.type]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        app_inputs = [] if mounted else write_inputs(tt, tmp, tex, sky)
+        asset_args = app_inputs[2:]
+
+        # -- (a) scripted frames: packed once, K1 a frame --
+        frames = os.path.join(tmp, "frames")
+        res, k1, k5, packs, builds = viewer_frames(
+            tt, rayview, shape_args(*VIEWER_SHAPE) + [
+                "--keys", VIEWER_KEYS, "--frames-dir", frames] + app_inputs)
+        n = len(VIEWER_KEYS)
+        loop = res["loop"]
+        per_frame = int(dev.type == "cuda")     # the plain version: none
+        if k1 != (n + 1) * per_frame or k5 or packs != 1 or builds != 1:
+            raise RuntimeError(f"the viewer made {k1} K1 and {k5} record "
+                               f"launches, {packs} packs and {builds} table "
+                               f"builds for {n} keys")
+        basis = tt.perspective_basis(res["camera"], width, height,
+                                     device="cpu")
+        want = render_megakernel_reference(
+            tt.pack_scene(loop.scene, basis), loop.assets, loop.cfg)
+        agree, mean, max_d = agreement(loop.rgb, want)
+        if agree < AGREE_FRAC or mean >= MEAN_ABS:
+            raise RuntimeError(f"the viewer's last frame disagrees with the "
+                               f"plain version: {agree}, {mean}")
+        for i, img in enumerate(res["images"]):
+            path = os.path.join(frames, f"frame_{i:04d}.png")
+            if not (tt.read_png(path) == img).all():
+                raise RuntimeError(f"{path} differs from its frame")
+        split = frame_split(res)
+        results.append(
+            f"(a) {width}x{height} d{depth}, {n} keys '{VIEWER_KEYS}': {k1} "
+            f"K1 launches, 0 record, 1 pack, 1 table build; last frame vs "
+            f"plain {agree:.6f} of pixels within {AGREE_ABS}, mean|d| "
+            f"{mean:.3g}, max|d| {max_d:.3g}; {n} PNGs equal the frames; "
+            f"median frame: device {fmt_ms(split['device'])} (CUDA events, "
+            f"K1 + quantise), host {split['frame']:.3f} ms = swap "
+            f"{split['swap']:.3f} + "
+            f"launch and copy back {split['frame'] - split['swap']:.3f} "
+            f"(copy back, waiting included, {split['copy']:.3f}); PNG "
+            f"writing {split['png']:.3f} ms a frame")
+
+        # -- (b) the 7,424-triangle archive of phase 12, 512x384 d3 --
+        archive = os.path.join(tmp, "mesh_k3.map")
+        tt.dump_scene(archive, mesh_spec)
+        keys = "wd8 6"
+        mw, mh, md = VIEWER_MESH_SHAPE
+        res_m, k1, k5, packs, builds = viewer_frames(
+            tt, rayview, shape_args(*VIEWER_MESH_SHAPE) + [
+                "--scene", archive, "--keys", keys,
+                "--frames-dir", os.path.join(tmp, "mesh_frames")]
+            + asset_args)
+        mloop = res_m["loop"]
+        if mloop.packed is None or mloop.packed.tris is None \
+                or k1 != (len(keys) + 1) * per_frame or k5 or packs != 1 \
+                or builds != 1:
+            raise RuntimeError(f"the viewer on the mesh archive made {k1} "
+                               f"K3 launches, {packs} packs and {builds} "
+                               "table builds")
+        ctl = rayview.CameraController()
+        fresh = []
+        for k in keys:
+            ctl.key(k)
+            t0 = time.perf_counter()
+            mbasis = tt.perspective_basis(ctl.camera(), mw, mh,
+                                          device="cpu")
+            rgb = tt.render_from_basis(mloop.scene, mloop.assets, mbasis,
+                                       mloop.cfg)
+            tt.quantize_image(rgb, mw, mh).cpu().numpy()
+            fresh.append((time.perf_counter() - t0) * 1e3)
+        msplit = frame_split(res_m)
+        results.append(
+            f"(b) {mloop.scene.num_triangles:,} triangles, {mw}x{mh} d{md}, "
+            f"{len(keys)} keys: {k1} K3 launches, 1 pack, 1 table build; "
+            f"median frame host {msplit['frame']:.3f} ms (device "
+            f"{fmt_ms(msplit['device'])}) against "
+            f"{statistics.median(fresh):.3f} ms for render_from_basis "
+            "(packing and tables every frame)")
+
+        # -- (c) serve on 127.0.0.1 with the real frame function --
+        ctl = rayview.CameraController()
+        jpeg = Counted(rayview, "encode_jpeg")
+        box = {}
+        server = threading.Thread(
+            target=rayview.serve,
+            args=(ctl, lambda: loop.frame(ctl.camera()), width, height, 0),
+            kwargs={"host": "127.0.0.1",
+                    "started": lambda httpd, stop: box.update(
+                        httpd=httpd, stop=stop)}, daemon=True)
+        try:
+            render_megakernel.launches = 0
+            server.start()
+            for _ in range(400):
+                if "httpd" in box:
+                    break
+                time.sleep(0.025)
+            base = f"http://127.0.0.1:{box['httpd'].server_address[1]}"
+            jpg = urllib.request.urlopen(f"{base}/frame.jpg",
+                                         timeout=60).read()
+            if jpg[:2] != b"\xff\xd8" or jpg[-2:] != b"\xff\xd9":
+                raise RuntimeError("/frame.jpg is not a whole JPEG")
+            origin, before = ctl.origin.copy(), render_megakernel.launches
+            rendered = len(loop.times)
+            urllib.request.urlopen(f"{base}/key?k=w", timeout=10).read()
+            for _ in range(400):
+                if len(loop.times) > rendered:
+                    break
+                time.sleep(0.025)
+            time.sleep(0.1)
+            moved = float(abs(ctl.origin - origin).max())
+            launched = render_megakernel.launches - before
+            if moved == 0 or len(loop.times) != rendered + 1 \
+                    or launched != per_frame:
+                raise RuntimeError(f"/key?k=w moved the camera by {moved} "
+                                   f"and made {launched} K1 launches")
+            with urllib.request.urlopen(f"{base}/stream", timeout=30) as r:
+                head = b""
+                while not head.endswith(b"\r\n\r\n"):
+                    head += r.read(1)
+                size = int(re.search(rb"Content-Length: (\d+)",
+                                     head).group(1))
+                part = r.read(size)
+            if part[:2] != b"\xff\xd8" or part[-2:] != b"\xff\xd9":
+                raise RuntimeError("a /stream part is not a whole JPEG")
+        finally:
+            t0 = time.perf_counter()
+            if "httpd" in box:
+                box["stop"].set()
+                box["httpd"].shutdown()
+            server.join(timeout=10)
+            down = time.perf_counter() - t0
+            jpeg.restore()
+        if server.is_alive():
+            raise RuntimeError("serve did not shut down within 10 s")
+        results.append(
+            f"(c) serve {width}x{height} d{depth}: /frame.jpg {len(jpg)} "
+            "bytes (SOI..EOI), "
+            f"/key?k=w moved the camera {moved:.3f} and made {launched} K1 "
+            "launch(es), "
+            f"a /stream part of {len(part)} bytes; JPEG encoding (quality 85)"
+            f" per frame {', '.join(f'{ms:.1f}' for ms in jpeg.ms)} ms; "
+            f"shut down in {down:.2f} s")
+
+        # -- (d) raypng --profile and timed --
+        prof = os.path.join(tmp, "profile")
+        pw, ph, pd = PROFILE_SHAPE
+        raypng.main(shape_args(*PROFILE_SHAPE) + [
+            "--repeat", "3", "--profile", prof,
+            "--out", os.path.join(tmp, "profiled.png")] + app_inputs)
+        traces = [f for f in os.listdir(prof) if f.endswith(".json")]
+        if len(traces) != 1:
+            raise RuntimeError(f"raypng --profile wrote {traces}")
+        with open(os.path.join(prof, traces[0])) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"
+                   and "megakernel" in e.get("name", "")]
+        if not kernels and dev.type == "cuda":
+            raise RuntimeError("the profiler trace has no megakernel event")
+        packed = tt.pack_scene(loop.scene, tt.perspective_basis(
+            tt.Camera(*GOLDEN_CAMERA), pw, ph, device=dev))
+        cfg_p = tt.RenderConfig(width=pw, height=ph, max_depth=pd)
+        render_megakernel(packed, loop.assets, cfg_p)
+        with timed(f"timed: K1 {pw}x{ph} d{pd} on {card}", dev):
+            render_megakernel(packed, loop.assets, cfg_p)
+        first = (f" ('{kernels[0]['name'][:40]}', {kernels[0].get('dur')} "
+                 "us)" if kernels else "")
+        results.append(
+            f"(d) raypng --profile {pw}x{ph} d{pd} --repeat 3: trace "
+            f"{traces[0]} parses, {len(events)} events, {len(kernels)} "
+            f"megakernel kernel events{first}; timed printed its line")
+
+        # -- (e) nan_guard: K1's wrapper checks the image --
+        cfg = loop.cfg
+        with nan_guard():
+            render_megakernel(loop.packed, loop.assets, cfg)
+        nan_counts = {}
+        for what in ("radius", "rgb"):
+            scene = tt.build_scene(tt.canonical_scene_spec(), dev)
+            if what == "radius":
+                scene.sphere_radius[0] = float("nan")
+            else:
+                scene.sphere_mat.rgb[:, 0] = float("nan")
+            bad = tt.pack_scene(scene, basis)
+            nan_counts[what] = int(torch.isnan(
+                render_megakernel(bad, loop.assets, cfg)).any(-1).sum())
+            try:
+                with nan_guard():
+                    render_megakernel(bad, loop.assets, cfg)
+                raised = None
+            except FloatingPointError as e:
+                raised = str(e)
+            if (raised is None) != (nan_counts[what] == 0):
+                raise RuntimeError(f"nan_guard with a NaN sphere {what}: "
+                                   f"{nan_counts[what]} NaN pixels, raised "
+                                   f"{raised}")
+        if not nan_counts["rgb"]:
+            raise RuntimeError("a NaN sphere colour made no NaN pixel")
+        results.append(
+            f"(e) nan_guard: a clean K1 render passes; a NaN in the spheres' "
+            f"colour makes {nan_counts['rgb']} NaN pixels and K1's wrapper "
+            f"raised FloatingPointError ('{raised}'); a NaN radius makes "
+            f"{nan_counts['radius']} (the sphere is missed) and nothing "
+            "raises")
+
+        # -- (f) the native codec --
+        status = native_lib.status()
+        text = f"(f) native codec {status}"
+        if native_lib.available():
+            img = res["images"][-1]
+            ours = os.path.join(tmp, "native.png")
+            theirs = os.path.join(tmp, "zlib.png")
+            native_lib.write_png(ours, img)
+            with open(theirs, "wb") as f:
+                f.write(tio.encode_png(img))
+            for path in (ours, theirs):
+                for reader in (tio.read_png, native_lib.read_png):
+                    if not (reader(path) == img).all():
+                        raise RuntimeError(f"{reader.__module__} read {path} "
+                                           "back different")
+            canonical = os.path.join(tmp, "canonical.map")
+            tt.dump_scene(canonical, tt.canonical_scene_spec())
+            for name, spec, path in (
+                    ("canonical", tt.canonical_scene_spec(), canonical),
+                    ("mesh", mesh_spec, archive)):
+                out = path + ".native"
+                native_lib.scene_write(out, *native_lib.scene_read(path))
+                with open(out, "rb") as f:
+                    if f.read() != tt.dumps_scene(spec):
+                        raise RuntimeError(f"scene_write on the {name} "
+                                           "scene differs from dumps_scene")
+            text += ("; its PNG and numpy + zlib's read back equal through "
+                     "both readers; scene_write byte-equal to dumps_scene "
+                     "on the canonical scene and the mesh archive")
+        results.append(text)
+    phase(21, "viewer and host modules",
+          f"{card}: " + "; ".join(results)
+          + f"; phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def write_inputs(tt, tmp, tex, sky):
     """A render.map of the canonical scene and an asset directory of the
     seeded images, as the apps read them."""
@@ -2272,6 +2610,7 @@ def main():
                       mesh_scenes, app_inputs, asset_args, query_entries)
     deep_phase(tt, dev, card, scene, assets, camera)
     shard_phase(card)
+    viewer_phase(tt, dev, card, mesh_specs["k3"], tex, sky, mounted)
 
     print(json.dumps({"kernels": [{
         "name": "megakernel",

@@ -658,3 +658,108 @@ def test_sharded_paths_match_one_rank(cuda, world, backend):
                 np.testing.assert_array_equal(got, want, err_msg=name)
             np.testing.assert_allclose(got, want, rtol=5e-3, atol=5e-5,
                                        err_msg=f"{case} {name}")
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["canonical", "mesh"])
+def test_viewer_frames_launch_once_and_equal_fresh_renders(cuda, mesh,
+                                                           monkeypatch):
+    """The viewer's frame loop on the card: the scene (and its triangle
+    tables) packed once, one megakernel launch a frame, and each frame
+    bit-equal to a fresh ``render_from_basis`` of the same basis."""
+    from tpuray_torch.apps import rayview
+    from tpuray_torch.kernels import megakernel
+    from tpuray_torch.meshes import mesh_benchmark_scene
+
+    builds = []
+    build = megakernel.build_tri_tables
+    monkeypatch.setattr(megakernel, "build_tri_tables",
+                        lambda s: builds.append(1) or build(s))
+    spec = mesh_benchmark_scene(2) if mesh else tt.canonical_scene_spec()
+    scene = tt.build_scene(spec, cuda)
+    assets = tt.assets_from_arrays(*tt.random_asset_arrays(0, 256, 256),
+                                   cuda)
+    width, height = 320, 240
+    cfg = tt.RenderConfig(width=width, height=height, max_depth=6,
+                          chunk_size=0)
+    ctl = rayview.CameraController()
+    loop = rayview.FrameLoop(scene, assets, cfg, ctl.camera())
+    assert loop.engine == "megakernel" and len(builds) == 1
+    for k in "wa8 6":
+        ctl.key(k)
+        cam = ctl.camera()
+        before, built = render_megakernel.launches, len(builds)
+        img = loop.frame(cam)
+        assert render_megakernel.launches == before + 1
+        assert len(builds) == built           # the frame built no table
+        basis = tt.perspective_basis(cam, width, height, device="cpu")
+        want = tt.render_from_basis(scene, assets, basis, cfg)
+        assert torch.equal(loop.rgb, want)
+        np.testing.assert_array_equal(
+            img, tt.quantize_image(want, width, height).cpu().numpy())
+        assert loop.times[-1]["device"] > 0
+
+
+def test_serve_answers_frames_with_the_real_renderer(cuda):
+    import threading
+    import time
+    import urllib.request
+
+    from tpuray_torch.apps import rayview
+
+    scene = tt.build_scene(tt.canonical_scene_spec(), cuda)
+    assets = tt.assets_from_arrays(*tt.random_asset_arrays(0, 256, 256),
+                                   cuda)
+    cfg = tt.RenderConfig(width=256, height=192, max_depth=6, chunk_size=0)
+    ctl = rayview.CameraController()
+    loop = rayview.FrameLoop(scene, assets, cfg, ctl.camera())
+    box = {}
+    th = threading.Thread(
+        target=rayview.serve,
+        args=(ctl, lambda: loop.frame(ctl.camera()), 256, 192, 0),
+        kwargs={"host": "127.0.0.1",
+                "started": lambda httpd, stop: box.update(httpd=httpd,
+                                                          stop=stop)},
+        daemon=True)
+    th.start()
+    for _ in range(200):
+        if "httpd" in box:
+            break
+        time.sleep(0.05)
+    base = f"http://127.0.0.1:{box['httpd'].server_address[1]}"
+    try:
+        jpg = urllib.request.urlopen(f"{base}/frame.jpg", timeout=60).read()
+        assert jpg[:2] == b"\xff\xd8" and jpg[-2:] == b"\xff\xd9"
+        before = render_megakernel.launches
+        urllib.request.urlopen(f"{base}/key?k=w", timeout=10).read()
+        for _ in range(400):
+            if render_megakernel.launches > before:
+                break
+            time.sleep(0.025)
+        assert render_megakernel.launches == before + 1
+    finally:
+        box["stop"].set()
+        box["httpd"].shutdown()
+        th.join(timeout=10)
+    assert not th.is_alive()
+
+
+def test_nan_guard_catches_a_nan_out_of_the_megakernel(cuda):
+    """K1 is launched through ctypes, out of the dispatcher's sight: under
+    ``nan_guard`` its wrapper checks the image itself.  A NaN planted in
+    the spheres' colour (packed before the guard) reaches the image; a NaN
+    radius would not (every comparison with it is false: the sphere is
+    missed)."""
+    from tpuray_torch.utils.debug import nan_guard
+
+    packed, assets, cfg = _inputs(cuda)
+    with nan_guard():
+        render_megakernel(packed, assets, cfg)
+    scene = tt.build_scene(tt.canonical_scene_spec(), cuda)
+    scene.sphere_mat.rgb[:, 0] = float("nan")
+    basis = tt.perspective_basis(tt.Camera(*GOLDEN_CAMERA), cfg.width,
+                                 cfg.height, device=cuda)
+    bad = pack_scene(scene, basis)
+    with nan_guard():
+        with pytest.raises(FloatingPointError,
+                           match="NaN values out of the megakernel"):
+            render_megakernel(bad, assets, cfg)

@@ -139,9 +139,10 @@ def test_port_imports_neither_jax_nor_tpuray():
             "tpuray_torch.kernels.triblocks, tpuray_torch.utils.kernel_ab, "
             "tpuray_torch.kernels.trace, tpuray_torch.kernels.query, "
             "tpuray_torch.parallel.distributed, tpuray_torch.parallel.shard, "
-            "tpuray_torch.parallel.selfcheck, chip_smoke; "
+            "tpuray_torch.parallel.selfcheck, tpuray_torch.apps.rayview, "
+            "tpuray_torch.utils.debug, tpuray_torch.native_lib, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'tpuray', 'triton')); "
+            "('jax', 'jaxlib', 'tpuray', 'triton', 'PIL')); "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

@@ -8,14 +8,18 @@ writes a PNG and can diff it against the reference's committed image.
     python -m tpuray_torch.apps.raypng [--scene render.map] [--out out/scene.png]
         [--width 800 --height 600] [--depth 15] [--device cuda] [--compare-golden]
         [--engine auto|megakernel|tracer] [--chunk-size 65536]
+        [--repeat N] [--profile LOGDIR] [--selfcheck]
 
 ``--engine tracer`` renders with the whole-image tracer (on the card its
 triangle queries go through the triangle-query kernel), in chunks of
-``--chunk-size`` pixels.
+``--chunk-size`` pixels.  ``--profile LOGDIR`` traces the ``--repeat``
+re-renders after the first with ``torch.profiler`` and writes a Chrome trace
+into LOGDIR.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
@@ -29,7 +33,8 @@ from ..io import GOLDEN_PNG, image_diff_stats, read_png, write_png
 from ..render import quantize_image, render
 from ..sceneio import load_scene
 from ..textures import DEFAULT_SKYBOX, REFERENCE_ASSETS, load_default_assets
-from ..utils.metrics import RenderReport
+from ..utils.debug import check_finite
+from ..utils.metrics import RenderReport, profile_trace
 
 
 def _render_once(scene, assets, cam, cfg, device):
@@ -69,6 +74,9 @@ def main(argv=None) -> dict:
                          "out/scene.png")
     ap.add_argument("--repeat", type=int, default=1,
                     help="renders to time; the best is reported")
+    ap.add_argument("--profile", default=None, metavar="LOGDIR",
+                    help="trace the re-renders after the first with "
+                         "torch.profiler; a Chrome trace goes into LOGDIR")
     ap.add_argument("--selfcheck", action="store_true",
                     help="assert the rendered image is finite (NaN guard)")
     args = ap.parse_args(argv)
@@ -89,13 +97,15 @@ def main(argv=None) -> dict:
 
     rgb, first = _render_once(scene, assets, cam, cfg, device)
     best = first
-    for _ in range(max(0, args.repeat - 1)):
-        rgb, s = _render_once(scene, assets, cam, cfg, device)
-        best = min(best, s)
+    profile_ctx = (profile_trace(args.profile) if args.profile
+                   else contextlib.nullcontext())
+    with profile_ctx:
+        for _ in range(max(0, args.repeat - 1)):
+            rgb, s = _render_once(scene, assets, cam, cfg, device)
+            best = min(best, s)
 
     if args.selfcheck:
-        if not bool(torch.isfinite(rgb).all()):
-            raise RuntimeError("selfcheck: the rendered image has NaN/inf")
+        check_finite(rgb, "render")
         print("selfcheck: image finite")
     img = quantize_image(rgb, cfg.width, cfg.height).cpu().numpy()
 

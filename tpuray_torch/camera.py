@@ -1,8 +1,9 @@
 """Camera model and perspective-basis math.
 
 Port of :mod:`tpuray.camera`: ``rinit_camera`` (cpu_ray.c:24-35) and
-``rgen_perspective`` (cpu_ray.c:42-106).  The interactive viewer's camera
-controls are not ported yet (ROADMAP.md A11).
+``rlookat`` (cpu_ray.c:37-39), ``rgen_perspective`` (cpu_ray.c:42-106) and
+the spherical-angle camera controls of the interactive viewer
+(rayinteractive.c:85-92).
 
 The perspective construction is reproduced formula for formula in float32,
 including the *unnormalised* right/up basis vectors (the reference builds
@@ -33,6 +34,21 @@ class Camera:
         n = np.float32(1.0) / np.float32(np.sqrt(np.float32(
             d[0] * d[0] + d[1] * d[1] + d[2] * d[2])))
         self.lookdir = tuple(np.float32(x * n) for x in d)
+
+    def lookat(self, direction) -> "Camera":
+        """rlookat (cpu_ray.c:37-39): replace the look direction."""
+        return Camera(self.origin, tuple(direction), self.fov,
+                      self.focal_length)
+
+    def with_spherical(self, x_rot: float, y_rot: float) -> "Camera":
+        """Spherical-angle look direction, y-up (rayinteractive.c:85-92)."""
+        d = (np.sin(x_rot) * np.cos(y_rot), np.cos(x_rot),
+             np.sin(x_rot) * np.sin(y_rot))
+        return self.lookat(d)
+
+    def moved(self, delta) -> "Camera":
+        o = tuple(np.float32(a + b) for a, b in zip(self.origin, delta))
+        return Camera(o, self.lookdir, self.fov, self.focal_length)
 
 
 @dataclasses.dataclass

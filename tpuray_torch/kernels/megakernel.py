@@ -34,7 +34,8 @@ The functions:
 
 * :func:`pack_scene` flattens scene + camera basis into one f32 buffer with
   static offsets (:class:`SceneLayout`), the layout ``csrc/megakernel.cu``
-  reads, and builds the triangle tables;
+  reads, and builds the triangle tables; :func:`swap_basis` gives a packed
+  scene another camera without packing it again (the viewer's frames);
 * :func:`render_megakernel_reference` is the plain PyTorch version: the same
   per-pixel DFS as whole-image masked tensor code, with the triangle search
   by brute force;
@@ -83,6 +84,7 @@ from ..camera import PerspectiveBasis
 from ..config import RenderConfig
 from ..scene import Scene
 from ..textures import SceneAssets
+from ..utils.debug import check_kernel_output
 from . import primitives as pr
 from .triblocks import (ATTR_STRIDE, TRI_CODE, TRI_MAX_LEVELS, TRI_THROUGH,
                         BruteForce, TriTables, build_tri_tables,
@@ -160,10 +162,7 @@ def pack_scene(scene: Scene, basis: PerspectiveBasis,
     tris = build_tri_tables(scene)
     dev = scene.device
     f32 = torch.float32
-    b = basis.to(dev)
-    parts = [b.corner, b.origin, b.up, b.right,
-             torch.stack([b.w_factor, b.h_factor]).to(f32),
-             torch.tensor([float(row0)], dtype=f32, device=dev)]
+    parts = [_basis_head(basis, row0, dev)]
     parts.append(torch.cat([scene.sphere_origin, scene.sphere_radius[:, None],
                             material_rows(scene.sphere_mat)], 1).reshape(-1))
     parts.append(torch.cat([scene.plane_normal, scene.plane_point,
@@ -177,6 +176,30 @@ def pack_scene(scene: Scene, basis: PerspectiveBasis,
     lay = SceneLayout(scene.num_spheres, scene.num_planes, scene.num_lights)
     return PackedScene(buf=buf, layout=lay, max_texture_id=max_tid,
                        tris=tris)
+
+
+def _basis_head(basis: PerspectiveBasis, row0: int, device) -> torch.Tensor:
+    """The buffer's first ``BASIS_SIZE`` floats on ``device``."""
+    f32 = torch.float32
+    b = basis.to(device)
+    return torch.cat([p.to(f32).reshape(-1) for p in (
+        b.corner, b.origin, b.up, b.right, torch.stack([b.w_factor,
+                                                        b.h_factor]),
+        torch.tensor([float(row0)], dtype=f32, device=device))])
+
+
+def swap_basis(packed: PackedScene, basis: PerspectiveBasis,
+               row0: int = 0) -> PackedScene:
+    """``packed`` seen from another camera: a new buffer whose basis head
+    (``pack_scene``'s first ``BASIS_SIZE`` floats) holds ``basis`` and
+    ``row0``, with the geometry copied on the device and the triangle
+    tables shared, not rebuilt.  Equal, bit for bit, to a fresh
+    ``pack_scene(scene, basis, row0)``.  A basis on the CPU costs one small
+    host-to-device copy."""
+    dev = packed.buf.device
+    head = _basis_head(basis, row0, basis.corner.device).to(dev)
+    return dataclasses.replace(
+        packed, buf=torch.cat([head, packed.buf[BASIS_SIZE:]]))
 
 
 # ---------------------------------------------------------------------------
@@ -693,11 +716,14 @@ def render_megakernel(packed: PackedScene, assets: SceneAssets,
     on a CUDA device launch the CUDA kernel on the current stream; a build
     or launch error raises and nothing falls back.  ``launches`` counts the
     kernel launches, ``bilinear_launches`` those with
-    ``cfg.filter='bilinear'`` (K2)."""
+    ``cfg.filter='bilinear'`` (K2).  Under ``utils.debug.nan_guard`` the
+    image is checked for NaN (a CUDA kernel is out of the guard's sight)."""
     _check_inputs(packed, assets, cfg)
     dev = packed.buf.device
     if dev.type == "cpu":
-        return render_megakernel_reference(packed, assets, cfg)
+        out = render_megakernel_reference(packed, assets, cfg)
+        check_kernel_output("megakernel", out)
+        return out
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from .build import load_library
@@ -724,6 +750,7 @@ def render_megakernel(packed: PackedScene, assets: SceneAssets,
         raise _kernel_error(lib, err, "megakernel")
     render_megakernel.launches += 1
     render_megakernel.bilinear_launches += cfg.filter == "bilinear"
+    check_kernel_output("megakernel", out)
     return out
 
 
@@ -763,12 +790,15 @@ def render_megakernel_record(packed: PackedScene, assets: SceneAssets,
     unused slots included.  Without triangles it shades a warp's solid hits
     together, as the base kernel does (``warp_shade`` in
     ``csrc/megakernel.cu``), each hit's owner writing its shadow ratios.
-    ``max_nodes`` stays on the device: reading it synchronises."""
+    ``max_nodes`` stays on the device: reading it synchronises.  Under
+    ``utils.debug.nan_guard`` the image and ``ssr`` are checked for NaN."""
     _check_inputs(packed, assets, cfg)
     krec = _check_record(packed, cfg)
     dev = packed.buf.device
     if dev.type == "cpu":
-        return render_megakernel_record_reference(packed, assets, cfg)
+        out, records = render_megakernel_record_reference(packed, assets, cfg)
+        check_kernel_output("record megakernel", out, records["ssr"])
+        return out, records
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from .build import load_library
@@ -808,6 +838,7 @@ def render_megakernel_record(packed: PackedScene, assets: SceneAssets,
         raise _kernel_error(lib, err, "record megakernel")
     render_megakernel_record.launches += 1
     render_megakernel_record.bilinear_launches += bilinear
+    check_kernel_output("record megakernel", out, ssr)
     return out, records
 
 

@@ -21,7 +21,8 @@ plain versions, :func:`tri_query_closest_reference` and
 :func:`tri_query_blocker_reference` (``triblocks.BruteForce``: every
 triangle, no culls); on CUDA tensors they launch ``csrc/tri_query.cu`` on
 the current stream, or raise.  ``launches`` on each wrapper counts its
-kernel launches.
+kernel launches.  Under ``utils.debug.nan_guard`` the closest query's t is
+checked for NaN (the blocker test's outputs are not floating).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import ctypes
 
 import torch
 
+from ..utils.debug import check_kernel_output
 from .triblocks import TRI_MAX_LEVELS, BruteForce, TriTables
 
 
@@ -96,7 +98,9 @@ def tri_query_closest(tables: TriTables, o, d):
     inf on a miss; id [P] i32, -1 on a miss)."""
     dev = _check(tables, o, d)
     if dev.type == "cpu":
-        return tri_query_closest_reference(tables, o, d)
+        t, wid = tri_query_closest_reference(tables, o, d)
+        check_kernel_output("triangle-query closest", t)
+        return t, wid
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=dev)
     wid = torch.empty(n, dtype=torch.int32, device=dev)
@@ -104,6 +108,7 @@ def tri_query_closest(tables: TriTables, o, d):
         _launch("tpuray_tri_query_closest", tables, n, o.data_ptr(),
                 d.data_ptr(), t.data_ptr(), wid.data_ptr())
         tri_query_closest.launches += 1
+        check_kernel_output("triangle-query closest", t)
     return t, wid
 
 

@@ -1,16 +1,22 @@
-"""Render reports and device timing.
+"""Render reports, profiling and device timing.
 
 Port of :mod:`tpuray.utils.metrics`.  The reference's observability is one
 printf ("Done, took: N ms", raypng.c:96); here a timed render gives a
 ``RenderReport`` with the headline metric (Mrays/s, primary rays per
-second) and names the device it ran on.  ``cuda_time_ms`` times work on the
-card with CUDA events.
+second) and names the device it ran on.  ``profile_trace`` wraps
+``torch.profiler`` (the JAX package's wraps ``jax.profiler``) and writes a
+Chrome trace; ``timed`` brackets a block with the device's synchronise;
+``cuda_time_ms`` times work on the card with CUDA events.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import json
+import os
 import statistics
-from typing import Callable, List, Optional, Tuple
+import time
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -31,6 +37,16 @@ class RenderReport:
     @property
     def mrays_per_s(self) -> float:
         return self.primary_rays / self.seconds / 1e6
+
+    def to_json(self) -> str:
+        """The JAX report's keys with its values (``compile_seconds`` is the
+        first render, kernel build included), then the port's own."""
+        d = {"width": self.width, "height": self.height,
+             "max_depth": self.max_depth, "seconds": self.seconds,
+             "compile_seconds": self.first_seconds,
+             "mrays_per_s": round(self.mrays_per_s, 3)}
+        d.update(dataclasses.asdict(self))
+        return json.dumps(d)
 
     def __str__(self) -> str:
         first = (f" (first render {self.first_seconds * 1e3:.1f} ms)"
@@ -59,3 +75,31 @@ def cuda_time_ms(fn: Callable[[], object], warmup: int = 3,
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), times
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str) -> Iterator[torch.profiler.profile]:
+    """``torch.profiler`` over the block, CPU activity and, where a card is
+    present, CUDA kernels; writes a Chrome trace (``*.pt.trace.json``,
+    Perfetto or chrome://tracing) into ``log_dir``."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                log_dir)) as prof:
+        yield prof
+
+
+@contextlib.contextmanager
+def timed(label: str, device="cpu") -> Iterator[None]:
+    """Wall-clock bracket that ends with the device's synchronise (the
+    clFinish equivalent, opencl_wrap.c:380) where ``device`` is CUDA."""
+    device = torch.device(device)
+    t0 = time.perf_counter()
+    yield
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    print(f"{label}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
