@@ -91,7 +91,18 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     JPEG time a frame; raypng ``--profile`` at 800x600 d15, whose trace must
     hold a megakernel kernel event, and ``timed``; ``nan_guard`` catching a
     NaN out of K1; the native codec's status and, where it built, its PNGs
-    and scene archives against the numpy + zlib codec and ``dumps_scene``.
+    and scene archives against the numpy + zlib codec and ``dumps_scene``;
+22. the benchmark, profiling and validation entry points, each run as
+    ``python3 -m`` at its defaults: ``tpuray_torch.bench``,
+    ``benchmarks.stages`` (stages 1-6), ``benchmarks.stream``,
+    ``scripts.profile_tri`` (base, noshadow, d1, notri),
+    ``scripts.profile_replay`` at depths 3 and 15, ``benchmarks.scaling``
+    for both layouts at 512x384 d3 (reduced: the tracer is slow at 1080p),
+    ``scripts.validate --skip-stages --skip-replay`` (invrender's 200 steps
+    at 128x96): every command must exit 0, print the card's line and rows
+    that name it, launch the kernels each row says it launched, and bench's
+    and stage 3's ``kernel_ms`` must lie within 25% of phase 5's K1 time at
+    1920x1080 d4.
 
 It prints a JSON line of per-kernel results, then, last, the line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it fails and
@@ -120,6 +131,7 @@ import os
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -207,6 +219,13 @@ VIEWER_KEYS = "wasd _8246wd8 s6_a2"
 VIEWER_SHAPE = (800, 600, 6)
 VIEWER_MESH_SHAPE = (512, 384, 3)
 PROFILE_SHAPE = (800, 600, 15)
+# phase 22: the entry points as a user runs them; scaling at 512x384 d3
+# (the tracer is slow at 1080p: the one reduced run); bench's and stage
+# 3's kernel_ms within this share of phase 5's K1 time at 1080p d4
+SCALING_SHAPE = ("--width", "512", "--height", "384", "--depth", "3")
+ENTRY_TIMEOUT = 900
+KERNEL_MS_RTOL = 0.25
+VALIDATE_INVRENDER_STEPS = 200
 
 
 def phase(n, name, text):
@@ -2214,6 +2233,141 @@ def viewer_phase(tt, dev, card, mesh_spec, tex, sky, mounted):
           + f"; phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+def entry_point(module, args, card):
+    """``python3 -m tpuray_torch.<module> args`` from the repository root:
+    (its JSON rows, its wall time).  Raises unless it exits 0, prints the
+    card's line and names the card in every row."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"tpuray_torch.{module}", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=ENTRY_TIMEOUT)
+    wall = time.perf_counter() - t0
+    what = f"{module} {' '.join(args)}"
+    if proc.returncode:
+        raise RuntimeError(f"{what} exited {proc.returncode}:\n"
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    if not any(ln.startswith(f"device: {card};") for ln in lines):
+        raise RuntimeError(f"{what} did not print the card's line")
+    rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    if not rows or any(r.get("device") != card for r in rows):
+        raise RuntimeError(f"{what}: no rows, or a row that does not name "
+                           f"{card}: {rows}")
+    return rows, wall
+
+
+def fmt_spread(row, key="ms_per_render"):
+    return (f"{row[key]:.4f} ms [{row['min_ms']:.4f}, {row['max_ms']:.4f}] "
+            f"over {row['reps']}")
+
+
+def entry_phase(card, app_inputs, k1_1080_ms, tmp):
+    """Phase 22: the entry points (see the module docstring), their rows
+    printed one a line, and the checks on their launches and times."""
+    from tpuray_torch.benchmarks.timing import REPS, WARMUP
+    from tpuray_torch.scripts import profile_replay
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    asset_args = app_inputs[2:]
+    k1_calls = 2 * (WARMUP + REPS)   # render_from_basis, then K1 alone
+    renders = {"megakernel": k1_calls, "megakernel_record": 0,
+               "tri_query": 0}
+    none = dict.fromkeys(renders, 0)
+    with_k5 = {**none, "megakernel_record": profile_replay.REPS}
+    runs = (
+        ("bench", "bench", list(app_inputs)),
+        ("stages", "benchmarks.stages", ["--stages", "1,2,3,4,5,6",
+                                         *app_inputs]),
+        ("stream", "benchmarks.stream", list(asset_args)),
+        ("profile_tri", "scripts.profile_tri",
+         ["--variants", "base,noshadow,d1,notri", *asset_args]),
+        ("profile_replay d3", "scripts.profile_replay",
+         ["3", "--json", *app_inputs]),
+        ("profile_replay d15", "scripts.profile_replay",
+         ["15", "--json", *app_inputs]),
+        ("scaling pixel", "benchmarks.scaling",
+         ["--layout", "pixel", *SCALING_SHAPE, *app_inputs]),
+        ("scaling scene", "benchmarks.scaling",
+         ["--layout", "scene", *SCALING_SHAPE, *app_inputs]),
+        ("validate", "scripts.validate",
+         ["--skip-stages", "--skip-replay", "--out",
+          os.path.join(tmp, "validate.json"), *app_inputs]),
+    )
+    texts, failed, kernel_ms = [], [], {}
+    for name, module, args in runs:
+        rows, wall = entry_point(module, args, card)
+        parts = []
+        for row in rows:
+            print(f"phase 22 row {name}: {json.dumps(row)}", flush=True)
+            got, want = row.get("launches"), None
+            if "param_err_start" in row:            # validate's invrender
+                if got["megakernel_record"] <= VALIDATE_INVRENDER_STEPS \
+                        or got["megakernel"] or got["tri_query"]:
+                    failed.append(f"validate's invrender launched {got}")
+                parts.append(
+                    f"invrender {row['config']}: observable error "
+                    f"{row['observable_err_start']:.4f} -> "
+                    f"{row['observable_err_end']:.4f}, "
+                    f"{row['train_seconds']:.1f} s, {got}")
+            elif "measured" in row:                 # validate's golden
+                parts.append(f"golden PSNR {row['psnr_db']:.2f} dB"
+                             if row["measured"] else
+                             f"golden not measured: {row['reason']}")
+            elif "what" in row:                     # profile_replay
+                want = with_k5 if row["what"] in (
+                    profile_replay.RECORD, profile_replay.FULL) else none
+                parts.append(f"{row['what']} {row['config']} "
+                             f"{fmt_spread(row, 'ms')}, "
+                             f"{row['cuda_kernels']} device ops, peak "
+                             f"{row['peak_mib']:.0f} MiB")
+            elif "layout" in row:                   # scaling
+                ok = (got["tri_query"] > 0 if row["layout"] == "scene"
+                      else not any(got.values()))
+                if not ok or got["megakernel"] or got["megakernel_record"]:
+                    failed.append(f"{name} launched {got}")
+                parts.append(f"{row['devices']} rank(s) over "
+                             f"{row['dist_backend']} "
+                             f"{fmt_spread(row)}, efficiency "
+                             f"{row['efficiency']:.3f}, rank 0 {got}")
+            else:                                   # a render row
+                want = renders
+                label = row.get("config", row.get("variant"))
+                if "metric" in row:
+                    label = f"bench {label}"
+                if "stage" in row:
+                    label = f"stage {row['stage']} {label}"
+                call = fmt_spread(row, "ms" if "variant" in row
+                                  else "ms_per_render")
+                parts.append(f"{label} {call}, kernel "
+                             f"{row['kernel_ms']:.4f} ms "
+                             f"[{row['kernel_min_ms']:.4f}, "
+                             f"{row['kernel_max_ms']:.4f}]"
+                             + (f", build {row['build_s']:.2f} s"
+                                if "build_s" in row else ""))
+                if name == "bench" or row.get("stage") == 3:
+                    kernel_ms[label] = row["kernel_ms"]
+            if want is not None and got != want:
+                failed.append(f"{name}: launches {got}, expected {want}")
+        texts.append(f"{name} ({wall:.1f} s): " + "; ".join(parts))
+    for what, ms in kernel_ms.items():
+        off = abs(ms / k1_1080_ms - 1.0)
+        texts.append(f"{what} kernel_ms {ms:.4f} vs phase 5's K1 "
+                     f"{k1_1080_ms:.4f} ms ({off:.1%} off)")
+        if off > KERNEL_MS_RTOL:
+            failed.append(f"{what}: kernel_ms {ms:.4f} is {off:.1%} off "
+                          f"phase 5's {k1_1080_ms:.4f} ms")
+    if len(kernel_ms) != 2:
+        failed.append(f"expected bench's and stage 3's kernel_ms, got "
+                      f"{sorted(kernel_ms)}")
+    phase(22, "benchmark entry points",
+          f"{card}: " + "; ".join(texts) + "; scaling ran at 512x384 d3 "
+          f"(reduced); phase took {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise RuntimeError("entry points: " + "; ".join(failed))
+
+
 def write_inputs(tt, tmp, tex, sky):
     """A render.map of the canonical scene and an asset directory of the
     seeded images, as the apps read them."""
@@ -2611,6 +2765,10 @@ def main():
     deep_phase(tt, dev, card, scene, assets, camera)
     shard_phase(card)
     viewer_phase(tt, dev, card, mesh_specs["k3"], tex, sky, mounted)
+    with tempfile.TemporaryDirectory() as tmp:
+        app_inputs = [] if mounted else write_inputs(tt, tmp, tex, sky)
+        entry_phase(card, app_inputs, timings[(1920, 1080, 4, "kernel")],
+                    tmp)
 
     print(json.dumps({"kernels": [{
         "name": "megakernel",

@@ -763,3 +763,83 @@ def test_nan_guard_catches_a_nan_out_of_the_megakernel(cuda):
         with pytest.raises(FloatingPointError,
                            match="NaN values out of the megakernel"):
             render_megakernel(bad, assets, cfg)
+
+
+def write_app_inputs(root) -> list:
+    """``--scene`` and ``--asset-dir`` of the canonical scene and seeded
+    textures, as ``chip_smoke.write_inputs`` writes them."""
+    root.joinpath("assets", "bg").mkdir(parents=True)
+    scene_path = str(root / "render.map")
+    tt.dump_scene(scene_path, tt.canonical_scene_spec())
+    tex, sky = tt.random_asset_arrays(0, 256, 256)
+    for name, img in zip(tt.textures.DEFAULT_TEXTURES, tex):
+        tt.write_png(str(root / "assets" / name), img)
+    tt.write_png(str(root / "assets" / tt.textures.DEFAULT_SKYBOX), sky)
+    return ["--scene", scene_path, "--asset-dir", str(root / "assets")]
+
+
+def test_measure_on_the_card_uses_cuda_events(cuda):
+    from tpuray_torch.benchmarks import timing
+
+    packed, assets, cfg = _inputs(cuda)
+    t = timing.measure(lambda: render_megakernel(packed, assets, cfg), cuda,
+                       warmup=1, reps=4)
+    assert t["timer"] == "cuda_events" and t["reps"] == 4
+    assert 0 < t["min_ms"] <= t["ms"] <= t["max_ms"]
+    info = timing.device_info(cuda)
+    assert info["device"].startswith(torch.cuda.get_device_name(0))
+
+
+def test_bench_kernel_ms_covers_the_kernels_device_time(cuda, tmp_path):
+    """bench's ``kernel_ms`` (CUDA events around K1 at 1920x1080 d4) is at
+    least K1's device time as the profiler sees it (the least of 5 calls),
+    and the render call's time at least the kernel's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuray_torch import bench
+    from tpuray_torch.benchmarks import timing
+
+    row = bench.main(["--device", "cuda", *write_app_inputs(tmp_path)])
+    assert row["timer"] == "cuda_events"
+    assert row["launches"]["megakernel"] == 2 * (timing.WARMUP
+                                                 + timing.REPS)
+    scene = tt.load_scene(str(tmp_path / "render.map")).to_scene(cuda)
+    assets = tt.load_default_assets(str(tmp_path / "assets"), device=cuda)
+    cfg = tt.RenderConfig(width=1920, height=1080, max_depth=4,
+                          chunk_size=0)
+    basis = tt.perspective_basis(tt.Camera(*GOLDEN_CAMERA), 1920, 1080,
+                                 device=cuda)
+    packed = pack_scene(scene, basis)
+    render_megakernel(packed, assets, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            render_megakernel(packed, assets, cfg)
+        torch.cuda.synchronize()
+    device_us = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and "megakernel" in e.name]
+    assert len(device_us) == 5, [e.name for e in prof.events()
+                                 if e.device_type == DeviceType.CUDA]
+    assert row["kernel_ms"] >= min(device_us) / 1e3
+    assert row["ms_per_render"] >= row["kernel_min_ms"]
+
+
+def test_entry_point_without_a_card_raises(cuda, tmp_path):
+    """With no card visible, ``--device cuda`` raises: nothing falls back
+    to the CPU."""
+    import os
+    import subprocess
+    import sys
+
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpuray_torch.bench", "--device", "cuda",
+         *write_app_inputs(tmp_path)], cwd=repo, env=env,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr, proc.stderr[-2000:]
+    assert "{" not in proc.stdout

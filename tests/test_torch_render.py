@@ -131,19 +131,17 @@ def test_golden_slab(row0):
 
 
 def test_port_imports_neither_jax_nor_tpuray():
-    code = ("import sys, tpuray_torch, tpuray_torch.apps.raypng, "
-            "tpuray_torch.apps.scenegen, tpuray_torch.apps.invrender, "
-            "tpuray_torch.diff, tpuray_torch.kernels.replay, "
-            "tpuray_torch.kernels.build, tpuray_torch.utils.metrics, "
-            "tpuray_torch.utils.checkpoint, tpuray_torch.meshes, "
-            "tpuray_torch.kernels.triblocks, tpuray_torch.utils.kernel_ab, "
-            "tpuray_torch.kernels.trace, tpuray_torch.kernels.query, "
-            "tpuray_torch.parallel.distributed, tpuray_torch.parallel.shard, "
-            "tpuray_torch.parallel.selfcheck, tpuray_torch.apps.rayview, "
-            "tpuray_torch.utils.debug, tpuray_torch.native_lib, chip_smoke; "
+    """Every module of the port (found by ``pkgutil.walk_packages``, so a
+    new one cannot escape) and ``chip_smoke`` import neither JAX nor the
+    JAX package (nor Triton or PIL)."""
+    code = ("import importlib, pkgutil, sys, tpuray_torch; "
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "tpuray_torch.__path__, 'tpuray_torch.')] + ['chip_smoke']; "
+            "[importlib.import_module(m) for m in mods]; "
+            "print(len(mods), 'modules'); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpuray', 'triton', 'PIL')); "
-            "print(bad); sys.exit(1 if bad else 0)")
+            "print(bad); sys.exit(1 if bad or len(mods) < 40 else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
