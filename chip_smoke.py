@@ -20,12 +20,16 @@ Phases, one line each; any failure raises and the exit code is nonzero:
    to K1's, at three test shapes, on 203x37 (lanes outside the image) and
    on rows 368-399 of 800x600 d15 (its deepest pixels);
 7. the replay on the card: it reproduces K5's image, and the gradient
-   through ``render_megakernel_diff`` matches the same on the CPU;
+   through ``render_megakernel_diff`` (its backward the replay's captured
+   CUDA graph, bit-equal to the eager first call) matches the same on the
+   CPU;
 8. the inverse-rendering path as a user runs it:
    ``tpuray_torch.apps.invrender`` at 128x96 depth 3 for 20 steps, which
    must go through K5 and lower the loss;
-9. times: K5 against K1 (the cost of recording), one training step and its
-   parts with peak memory, at the training shapes;
+9. times: K5 against K1 (the cost of recording), one training step (its
+   backward the replay's CUDA graph) and its parts with peak memory, the
+   replay's VJP through the graph beside ``diff.replay_vjp`` run eagerly on
+   the same inputs, bit-equal, at the training shapes;
 10. the kernel with triangles (K3 and K4, one path) against its plain
     version, whose triangle search is brute force: ``mesh_benchmark_scene(4)``
     (7,424 triangles) at 512x384 depth 3, the whole image, and 163,840
@@ -159,6 +163,9 @@ REPLAY_MAX = 5e-2
 TRI_REPLAY_MEAN = 2e-3
 TRI_REPLAY_MAX = 1e-1
 GRAD_ATOL = 2e-2
+# backward calls through render_megakernel_diff on the card in phase 7: one
+# eager, one that captures the replay's CUDA graph, the rest replays
+GRAPH_CALLS = 3
 # the golden drive's bar (ROADMAP.md, Tier-1 verify)
 GOLDEN_MEAN = 1.0
 GOLDEN_WITHIN_8 = 0.99
@@ -583,13 +590,16 @@ def query_group():
 
 
 def profile_step(step, what):
-    """One call of ``step`` under torch.profiler, after one unprofiled
-    call: its CUDA kernel launches, the time the device was busy with them
-    (the union of their intervals), the call's wall time under the
-    profiler and the three kernels that took the most device time."""
+    """One call of ``step`` under torch.profiler, after two unprofiled
+    calls (a training step's first runs the replay eagerly, its second
+    captures the replay's CUDA graph): its CUDA kernel launches, the time
+    the device was busy with them (the union of their intervals), the
+    call's wall time under the profiler and the three kernels that took the
+    most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    step()
     step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2442,9 +2452,15 @@ def main():
                            f"{float(d.max()):.3g}")
             if float(d.mean()) >= REPLAY_MEAN or float(d.max()) >= REPLAY_MAX:
                 raise RuntimeError("replay disagrees: " + results[-1])
+        # on the card three backward calls: the first runs the replay
+        # eagerly, the second captures its CUDA graph and replays it, the
+        # third replays it; the graph's gradients must equal the eager
+        # ones bit for bit, and the last is held against the CPU's
         grads = {}
         width, height = 64, 48
-        for where in (dev, torch.device("cpu")):
+        graph = tt.diff.replay_graph
+        before = (graph.captures, graph.replays)
+        for where, calls in ((dev, GRAPH_CALLS), (torch.device("cpu"), 1)):
             g_scene = tt.build_scene(tt.canonical_scene_spec(), where)
             g_assets = assets.to(where)
             basis = tt.perspective_basis(camera, width, height, device=where)
@@ -2454,10 +2470,25 @@ def main():
             leaves = {k: v.clone().requires_grad_() for k, v in diff.items()}
             gen = torch.Generator().manual_seed(0)
             w = torch.rand(height, width, 3, generator=gen).to(where)
-            img = tt.render_megakernel_diff(tt.combine(leaves, rest),
-                                            g_assets, basis, cfg)
-            g = torch.autograd.grad((img * w).sum(), list(leaves.values()))
-            grads[where.type] = dict(zip(leaves, (x.cpu() for x in g)))
+            runs = []
+            for _ in range(calls):
+                img = tt.render_megakernel_diff(tt.combine(leaves, rest),
+                                                g_assets, basis, cfg)
+                runs.append(torch.autograd.grad((img * w).sum(),
+                                                list(leaves.values())))
+            if where.type == "cuda":
+                took = (graph.captures - before[0], graph.replays - before[1])
+                if took != (1, calls - 1):
+                    raise RuntimeError(f"{calls} backward calls on the card "
+                                       f"made {took} (captures, replays) of "
+                                       f"the replay's graph")
+                for later in runs[1:]:
+                    if not all(torch.equal(a, b)
+                               for a, b in zip(later, runs[0])):
+                        raise RuntimeError("the graphed gradients differ "
+                                           "from the eager ones")
+            grads[where.type] = dict(zip(leaves,
+                                         (x.cpu() for x in runs[-1])))
         worst = 0.0
         for name, ours in grads["cuda"].items():
             want = grads["cpu"][name]
@@ -2470,9 +2501,11 @@ def main():
                 if err > GRAD_ATOL:
                     raise RuntimeError(f"gradient of {name} on the card is "
                                        f"{err:.3g} * max|g| off the CPU's")
-        results.append(f"gradient {width}x{height} d3 ss2 on the card vs "
-                       f"the CPU: worst leaf max|d| {worst:.3g} * max|g| "
-                       f"(bar {GRAD_ATOL}), all finite")
+        results.append(f"gradient {width}x{height} d3 ss2 on the card "
+                       f"(the replay's graph, {GRAPH_CALLS} backward calls: 1 "
+                       f"eager, 1 capture, {GRAPH_CALLS - 1} replays, "
+                       f"bit-equal) vs the CPU: worst leaf max|d| "
+                       f"{worst:.3g} * max|g| (bar {GRAD_ATOL}), all finite")
         phase(7, "replay and gradient", "; ".join(results))
 
         # -- 8. the invrender path through K5 --
@@ -2555,23 +2588,22 @@ def main():
             (128, 96, 3, 0, 0, 10), (256, 192, 3, 2, 0, 10),
             (512, 384, 3, 0, 0, 10), (800, 600, 15, 2, 64, 2)):
         shape = f"{width}x{height} d{depth} ss{samples}"
-        warmup = 3 if reps >= 10 else 1
+        # at least two: a key's first step runs the replay eagerly, its
+        # second captures the graph
+        warmup = 3 if reps >= 10 else 2
         try:
             trainer, cfg, basis = trainer_for(width, height, depth, samples,
                                               slots)
             packed = tt.pack_scene(scene, basis)
             _, recs = render_megakernel_record(packed, assets, cfg)
             gimg = torch.rand(height, width, 3, device=dev)
-            # the replay as the step runs it: gradients of the trained
-            # leaves only
-            params = {k: v.detach().requires_grad_(trainer.mask[k])
-                      for k, v in trainer.params.items()}
-            trained = [params[k] for k in trainer.trained]
-
-            def replay_backward():
-                img = tt.replay_render(tt.combine(params, truth[1]), assets,
-                                       basis, recs, cfg)
-                return torch.autograd.grad(img, trained, gimg)
+            # the replay's VJP as the step runs it (gradients of the
+            # trained leaves only), through the graph and eagerly
+            need = [trainer.mask[k] for k in trainer.params] \
+                + [False] * 6     # the basis
+            vjp_args = ({k: v.detach() for k, v in trainer.params.items()},
+                        basis, truth[1], recs, gimg, assets, cfg, 0, need)
+            graph = tt.diff.replay_graph
 
             torch.cuda.reset_peak_memory_stats()
             step_ms = cuda_time_ms(lambda: trainer.step(True), warmup=warmup,
@@ -2581,19 +2613,39 @@ def main():
                                     iters=reps)[0]
             fwd_ms = cuda_time_ms(lambda: render_megakernel_record(
                 packed, assets, cfg), iters=reps)[0]
+            # two warm-ups: the first call of a key runs eagerly, the second
+            # captures
+            graph_ms = cuda_time_ms(lambda: graph.vjp(*vjp_args),
+                                    warmup=max(warmup, 2), iters=reps)[0]
+            graphed = graph.vjp(*vjp_args)
+            reserved = torch.cuda.memory_reserved() / 2 ** 20
+            graph.release()
             torch.cuda.reset_peak_memory_stats()
-            replay_ms = cuda_time_ms(replay_backward, warmup=warmup,
-                                     iters=reps)[0]
+            replay_ms = cuda_time_ms(lambda: tt.diff.replay_vjp(*vjp_args),
+                                     warmup=warmup, iters=reps)[0]
             replay_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            eager = tt.diff.replay_vjp(*vjp_args)
+            g_diff = max((float((a - b).abs().max()) for a, b in
+                          zip(graphed, eager) if a is not None and a.numel()),
+                         default=0.0)
+            same = all(a is None and b is None or torch.equal(a, b)
+                       for a, b in zip(graphed, eager))
             texts.append(
-                f"step {shape}: {step_ms:.3f} ms (peak {step_peak:.0f} MiB);"
-                f" loss and gradients {grads_ms:.3f} ms, of which K5 "
-                f"{fwd_ms:.4f} ms and the replay forward+backward "
-                f"{replay_ms:.3f} ms (peak {replay_peak:.0f} MiB); "
-                f"optimizer and the rest {step_ms - grads_ms:.3f} ms; "
-                f"max_nodes {int(recs['max_nodes'])}, Krec "
+                f"step {shape}: {step_ms:.3f} ms through the replay's graph "
+                f"(peak {step_peak:.0f} MiB allocated); loss and gradients "
+                f"{grads_ms:.3f} ms, of which K5 {fwd_ms:.4f} ms; the "
+                f"replay's VJP through the graph {graph_ms:.3f} ms "
+                f"({reserved:.0f} MiB reserved with the graph), replay_vjp "
+                f"eagerly {replay_ms:.3f} ms (peak {replay_peak:.0f} MiB), "
+                f"largest gradient difference {g_diff:.3g} (bit-equal "
+                f"{same}); optimizer and the rest {step_ms - grads_ms:.3f} "
+                f"ms; max_nodes {int(recs['max_nodes'])}, Krec "
                 f"{cfg.resolved_record_slots()}")
-            del trainer, recs, params, trained
+            if not same:     # no triangles: no atomics in the replay
+                raise RuntimeError(f"step {shape}: the graphed replay's "
+                                   f"gradients differ from replay_vjp's by "
+                                   f"up to {g_diff:.3g}")
+            del trainer, recs, vjp_args, graphed, eager
         except torch.cuda.OutOfMemoryError:
             texts.append(f"step {shape}: does not fit (peak "
                          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f}"

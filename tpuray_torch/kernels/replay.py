@@ -64,8 +64,9 @@ def _sphere_t(o, d, center, radius, active):
     """Recorded-winner sphere t, far-root rule (primitives.cl:170-195).
     Inactive lanes get a unit ray, so the quadratic never divides by zero;
     ``b = 2 * dot(v, d)`` keeps the kernel's operation order, which grazing
-    hits amplify (replay.py:64-85)."""
-    unit = torch.tensor([0.0, 0.0, 1.0], dtype=F32, device=d.device)
+    hits amplify (replay.py:64-85).  The unit ray is made on the device (no
+    host-to-device copy, which a CUDA graph's capture refuses)."""
+    unit = (torch.arange(3, device=d.device) == 2).to(F32)
     d = torch.where(active[:, None], d, unit)
     v = o - center
     a = pr.dot3(d, d)
@@ -159,9 +160,16 @@ def _tap_fraction(u, x0, size: int, wrap: bool):
     return u - (k + shift.to(u.dtype))
 
 
+def record_slots(records: dict) -> int:
+    """The slots the replay walks: ``max_nodes``, at most the records'
+    slots.  Reading ``max_nodes`` waits for the record kernel."""
+    return min(int(records["max_nodes"]), records["rec"].shape[0])
+
+
 def replay_render(scene: Scene, assets: SceneAssets,
                   basis: PerspectiveBasis, records: dict,
-                  cfg: RenderConfig, row0: int = 0) -> torch.Tensor:
+                  cfg: RenderConfig, row0: int = 0, *,
+                  n_slots: int | None = None) -> torch.Tensor:
     """Dense differentiable replay of recorded megakernel paths.
 
     Returns float32 linear rgb [H, W, 3], equal to the record render of the
@@ -178,6 +186,11 @@ def replay_render(scene: Scene, assets: SceneAssets,
     0..s-2 stacked into one [s-1, n_pix, 8] f32 tensor.  That stack lives
     only for its slot's gather (forward) and scatter (backward): at most
     (Krec - 1) * n_pix * 32 bytes, 722 MB at 800x600 depth 15 (Krec 48).
+
+    ``n_slots`` is :func:`record_slots` of ``records``, read from them when
+    not given; given, the replay reads nothing back from the device and
+    puts no host data on it, so a CUDA graph can capture it
+    (``diff.ReplayGraph``).
     """
     ns, npl, nl = scene.num_spheres, scene.num_planes, scene.num_lights
     nt = scene.num_triangles
@@ -198,7 +211,8 @@ def replay_render(scene: Scene, assets: SceneAssets,
     sky_h, sky_w = assets.skybox.shape[0], assets.skybox.shape[1]
     tex_h, tex_w = assets.textures.shape[1], assets.textures.shape[2]
     sky_base = assets.textures.shape[0] * tex_h * tex_w
-    n_slots = min(int(records["max_nodes"]), rec.shape[0])
+    if n_slots is None:
+        n_slots = record_slots(records)
     o0, d0 = generate_rays(basis, width, height, row0)
     table = _solid_table(scene)
     tri_table = _tri_table(scene) if nt else None

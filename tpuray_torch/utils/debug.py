@@ -15,7 +15,11 @@ edge cases) and a kernel that writes wrong values:
   the replay) make NaNs on lanes whose results they drop (``refract``'s
   n1 / n2 where a lane's material has n = 0), so a guard over a render on
   the CPU raises where the render is right; on the card a megakernel
-  render is one kernel and passes.
+  render is one kernel and passes.  The guard turns on autograd's anomaly
+  mode, and under it ``diff.render_megakernel_diff``'s backward runs the
+  replay eagerly on the card too, not as its captured CUDA graph: the
+  guard's checks read each value back on the host, which a capture cannot
+  hold.
 * :func:`check_finite` asserts that every floating leaf of a nested
   dict/list/tuple of tensors or arrays is finite (host side, for tests and
   the apps' ``--selfcheck``).
